@@ -1,0 +1,6 @@
+"""Hand-written Hopper kernels (``csrc/``) with their ctypes wrappers.
+
+Each ``kernels/<name>/`` holds ``ref.py`` (the plain PyTorch version, run for
+CPU tensors and used as the yardstick on the card) and ``ops.py`` (the
+wrapper: checks, launch on the current stream, launch count).
+"""

@@ -1,0 +1,4 @@
+from .ops import ltrf_matmul, matmul_plan, pick_blocks
+from .ref import matmul_ref
+
+__all__ = ["ltrf_matmul", "matmul_plan", "matmul_ref", "pick_blocks"]

@@ -1,0 +1,101 @@
+"""The port's ltrf_matmul (plain path on the CPU) and its per-CTA plan against
+the JAX package's Pallas kernel (interpret mode), matmul_ref and core.plan."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_parity import DTYPES, assert_close, randn, to_jax, to_torch  # noqa: E402
+
+from repro.core import plan as jplan  # noqa: E402
+from repro.kernels.ltrf_matmul.ops import ltrf_matmul as jax_ltrf_matmul  # noqa: E402
+from repro.kernels.ltrf_matmul.ref import matmul_ref as jax_matmul_ref  # noqa: E402
+from repro_torch.core import plan as tplan  # noqa: E402
+from repro_torch.kernels.ltrf_matmul import (  # noqa: E402
+    ltrf_matmul, matmul_plan, matmul_ref, pick_blocks,
+)
+from repro_torch.kernels.ltrf_matmul.ops import SMEM_PER_CTA, stage_bytes  # noqa: E402
+
+# test_kernels.py:27-28, plus decode-like shapes (M = 8 rows)
+SHAPES = [(128, 128, 128), (256, 384, 128), (300, 500, 200), (64, 1024, 96),
+          (8, 2048, 256), (8, 512, 384)]
+# the slice's projections: decode (M=8) and prefill (M=2048) of tinyllama-1.1b
+SLICE_KN = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_path_matches_pallas_and_ref(shape, dtype):
+    M, K, N = shape
+    x, w = randn(0, (M, K)), randn(1, (K, N))
+    got = ltrf_matmul(to_torch(x, dtype), to_torch(w, dtype))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (M, N)
+    jx, jw = to_jax(x, dtype), to_jax(w, dtype)
+    assert_close(got, jax_ltrf_matmul(jx, jw, bm=128, bk=128, bn=128, interpret=True), dtype)
+    assert_close(got, jax_matmul_ref(jx, jw), dtype)
+    # the wrapper's CPU path is exactly the plain version
+    torch.testing.assert_close(got, matmul_ref(to_torch(x, dtype), to_torch(w, dtype)),
+                               rtol=0, atol=0)
+
+
+def _plan_tuple(plan):
+    return (plan.vmem_budget, plan.num_slots, plan.tile_bytes,
+            [(p.interval_id, p.layer_names, [(t.name, t.bytes) for t in p.tiles],
+              p.slots, p.fetch_bytes) for p in plan.prefetches])
+
+
+@pytest.mark.parametrize("args", [
+    (8, 2048, 32, 128, 32, 87552, 6, 2),        # one decode CTA's column
+    (2048, 5632, 128, 32, 128, 113664, 6, 2),   # one prefill CTA's column
+    (4096, 17920, 5120, 512, 1024, 96 * 2 ** 20, 2, 2),  # test_kernels.py:65 scale
+    (300, 500, 200, 128, 128, 1 << 16, 3, 4),
+    (64, 1024, 96, 64, 32, 50_000, 4, 4),
+])
+def test_plan_for_matmul_equals_reference(args):
+    m, k, n, bk, bn, budget, slots, nbytes = args
+    want = jplan.plan_for_matmul(m, k, n, bk, bn, vmem_budget=budget,
+                                 num_slots=slots, dtype_bytes=nbytes)
+    got = tplan.plan_for_matmul(m, k, n, bk, bn, vmem_budget=budget,
+                                num_slots=slots, dtype_bytes=nbytes)
+    assert _plan_tuple(got) == _plan_tuple(want)
+
+
+@pytest.mark.parametrize("budget,slots", [(4096, 2), (10_000, 3), (1 << 20, 4)])
+def test_plan_layer_stream_equals_reference(budget, slots):
+    spec = [("embed", [("e", 3000)]), ("l0", [("a", 1500), ("b", 700)]),
+            ("l1", [("b", 700), ("c", 5000)]), ("l2", [("a", 1500), ("d", 64)]),
+            ("head", [("h", 9000)])]
+
+    def build(mod):
+        return [mod.LayerNode(name, [mod.Tile(t, b) for t, b in tiles])
+                for name, tiles in spec]
+
+    want = jplan.plan_layer_stream(build(jplan), budget, num_slots=slots)
+    got = tplan.plan_layer_stream(build(tplan), budget, num_slots=slots)
+    assert _plan_tuple(got) == _plan_tuple(want)
+
+
+@pytest.mark.parametrize("M", [8, 2048])
+@pytest.mark.parametrize("kn", SLICE_KN)
+def test_per_cta_plan_validates(M, kn):
+    K, N = kn
+    plan, (bm, bk, bn) = matmul_plan(M, K, N, 2)
+    plan.validate()
+    _, _, _, stages = pick_blocks(M, K, N, 2)
+    assert plan.num_slots == stages
+    assert plan.vmem_budget == stages * stage_bytes(bm, bk, bn, 2) <= SMEM_PER_CTA
+    # the plan covers exactly one CTA's column of weight tiles
+    assert sum(len(p.tiles) for p in plan.prefetches) >= -(-K // bk)
+    assert matmul_plan(M, K, N, 2) is matmul_plan(M, K, N, 2)  # memoized
+
+
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
+@pytest.mark.parametrize("shape", SHAPES + [(M, K, N) for M in (1, 8, 33, 64, 65, 2048)
+                                             for K, N in SLICE_KN])
+def test_pick_blocks_fits_shared_memory(shape, dtype_bytes):
+    M, K, N = shape
+    bm, bk, bn, stages = pick_blocks(M, K, N, dtype_bytes)
+    assert 2 <= stages and stages * stage_bytes(bm, bk, bn, dtype_bytes) <= SMEM_PER_CTA
+    assert SMEM_PER_CTA == 232_448
+    if M <= 64:
+        assert bm >= M  # decode: one M-tile covers every row
+    assert bm % 16 == 0 and bk % 16 == 0 and bn % 8 == 0
