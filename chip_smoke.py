@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -7,37 +7,54 @@ Phases, each printing one JSON line with its wall time (any failure raises and
 exits non-zero; no phase's error is caught):
 
 1. device  -- ``nvidia-smi`` name and power limit.
-2. build   -- both Hopper kernels from ``src/repro_torch/csrc`` (nvcc, in
+2. build   -- the three Hopper kernels from ``src/repro_torch/csrc`` (nvcc, in
    parallel) into ``build/kernels/``.
 3. kernel_checks -- each kernel against its plain PyTorch version on the
-   card, at the main path's shapes: error, the per-CTA plan, and the median
+   card, at the main paths' shapes: error, the per-CTA plan, and the median
    time of the kernel, the plain version and one PyTorch library call for
-   the same function (``library_ms``; the port never calls it), beside its
-   bound.
+   the same function where there is one (``library_ms``; the port never calls
+   it), beside its bound.  Planted faults show what the flash and ssd limits
+   catch.
 4. prefill -- full-width tinyllama-1.1b ``loss_fn`` on B=2 x S=1024 tokens
    from the seed, on the kernel path; logits and loss held against the plain
    path on the card, and each layer's ``flash_attention`` call against its
    plain version at that layer's inputs.  Planted attention faults show what
    each limit catches.
-5. serve   -- full-width ``serve()`` (8 active slots, max_len 256, 16
-   requests, up to 12 new tokens each) on the kernel path; all requests
+5. serve   -- full-width tinyllama ``serve()`` (8 active slots, max_len 256,
+   16 requests, up to 12 new tokens each) on the kernel path; all requests
    complete, no page leaks; the first 4 decode steps' logits held against
    the plain path.
-6. profile -- four full-width decode steps as the engine runs them, under
-   ``torch.profiler``: the device-busy share of a step and the kernels by
-   device time (Chrome trace in chiprun_out/decode_trace.json).
-7. a ``{"kernels": [...]}`` line: launches on the main path (phases 4 and 5,
-   each counted from 0), error, times and bounds per kernel.
-8. the last line: ``{"ok": true, "device": {...}}``.
+6. profile -- four full-width tinyllama decode steps as the engine runs them,
+   under ``torch.profiler``: the device-busy share of a step and the kernels
+   by device time (Chrome trace in chiprun_out/decode_trace.json).
+7. prefill_mamba2 -- full-width mamba2-1.3b ``loss_fn`` at B=2 x S=1024 on
+   the kernel path (97 ``ltrf_matmul`` and 48 ``ssd_scan`` launches), held
+   against the plain path; each layer's ``ssd_scan`` chunk kernel held
+   against ``ssd_chunk_ref`` at that layer's inputs; two planted SSM faults
+   (inter-chunk carry dropped, lower-triangle mask dropped) must fail the
+   model-level limit.
+8. serve_mamba2 -- the serve of phase 5 for mamba2-1.3b, its first 4 decode
+   steps held against the plain path, and 4 decode steps profiled.
+9. prefill_zamba2 -- full-width zamba2-1.2b ``loss_fn`` at B=2 x S=1024 (119
+   ``ltrf_matmul``, 6 ``flash_attention``, 38 ``ssd_scan`` launches), held
+   against the plain path, each layer's flash and ssd call held against its
+   plain version, and 4 decode steps (6 per-call-site KV caches) held against
+   the plain path.
+10. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
+    7, 8 and 9, each counted from 0), error, times and bounds per kernel.
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 Weights are random (seeded); the port imports neither jax nor the JAX package.
-Bounds use the H100 SXM data-sheet figures: 3.35 TB/s HBM, 989 TFLOP/s dense
-bf16 tensor, 67 TFLOP/s fp32.  Full results also go to chiprun_out/chip_smoke.json.
+Each model's weights are freed before the next model is made.  Bounds use the
+H100 SXM data-sheet figures: 3.35 TB/s HBM, 989 TFLOP/s dense bf16 tensor,
+67 TFLOP/s fp32.  Full results also go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -56,8 +73,11 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.ltrf_matmul import ltrf_matmul, matmul_plan, matmul_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_scan  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import layers, mamba2  # noqa: E402
+from repro_torch.models import lm as lm_module  # noqa: E402
 from repro_torch.models.lm import (  # noqa: E402
     decode_step, init_decode_cache, init_params, logits_fn, loss_fn,
 )
@@ -65,6 +85,9 @@ from repro_torch.models.lm import (  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ARCH = "tinyllama-1.1b"
+SSM_ARCH = "mamba2-1.3b"
+HYBRID_ARCH = "zamba2-1.2b"
+KERNELS = ("ltrf_matmul", "flash_attention", "ssd_scan")
 # tolerances.  ltrf_matmul vs its plain version: the _tol table of the kernel
 # tests (its outputs here are about N(0, 1)).  flash_attention vs its plain
 # version: both compute in fp32 and round once to bf16, so they differ by at
@@ -83,6 +106,35 @@ FLASH_REL_L2 = 1e-2
 MODEL_LOGITS_REL_L2 = 3.5e-2
 MODEL_LOSS_REL = 1e-2
 ZEROED_KV = slice(512, 576)        # the planted fault's KV tile (rows of S)
+# ssd_scan vs ssd_chunk_ref: both fp32, the same products summed in another
+# order (FFMA on the CUDA cores against torch's fp32 matmuls) and cum summed
+# by another scan.  The sharp limit is a relative L2 per output: on an H100
+# sound reads are 2e-6 to 1.7e-5 (kernel-check shapes and every layer's
+# inputs of both models), and a planted fault (one 64-row block of x zeroed
+# in one chunk) reads 0.17-0.31 on y_intra and must fail.  Elementwise, the
+# fp32 _tol row (rtol 2e-4, atol 1e-4 times the output's RMS) is 10x too
+# tight for single terms: each decay is exp(cum_i - cum_j) of two fp32
+# cumulative sums that reach |Q dt A| ~ 1e3-1e4 at Q = 256, whose ulp is
+# 1e-4 to 1e-3, so two summation orders move single terms by up to ~4e-3
+# relative where a sum cancels (read on an H100: up to 3.9x of rtol 1e-3 /
+# atol 1e-4 x RMS at the model's inputs).  The elementwise limit is that row
+# times 50 / 10, a bound on gross local faults.
+SSD_RTOL = 1e-2
+SSD_ATOL = 1e-3                    # times the output's RMS
+SSD_REL_L2 = 1e-4
+SSD_OUTPUTS = ("y_intra", "states", "in_decay", "chunk_decay")
+# model-level limits for the Mamba2 families, kernel path vs plain path, as a
+# relative L2 of the logits.  In bf16 the two paths' rounding flips grow over
+# 48 (38) layers and 1024 positions: on an H100 sound reads are 0.16-0.19 at
+# prefill and 0.03-0.12 over 4 decode steps, and the plain path against
+# itself with only its products rounded another way reads 0.18-0.21.  A
+# dropped inter-chunk carry reads 0.20 there, so the bf16 limit only bounds
+# gross faults.  The sharp limit runs the same weights and tokens in fp32,
+# where the paths differ by fp32 sum order only: sound reads 2.7e-4-3.6e-4 at
+# prefill and 7e-6-3.4e-5 at decode; the dropped carry reads 0.18 and the
+# dropped mask 1.35, and both must read above it.
+SSM_BF16_REL_L2 = 0.35
+SSM_FP32_REL_L2 = 3e-3
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -157,6 +209,21 @@ def compare_flash(got, want) -> dict:
     return rec
 
 
+def compare_ssd(got, want) -> dict:
+    """The four chunk outputs, each against the SSD limits."""
+    rec = {}
+    for name, g, w in zip(SSD_OUTPUTS, got, want):
+        rms = float(w.square().mean().sqrt())
+        err = (g - w).abs()
+        rec[name] = {"max_abs_err": float(err.max()), "rms": rms, "rel_l2": rel_l2(g, w),
+                     "max_excess": float((err / (SSD_ATOL * rms + SSD_RTOL * w.abs())).max())}
+        rec[name]["within_tol"] = (rec[name]["max_excess"] <= 1.0
+                                   and rec[name]["rel_l2"] <= SSD_REL_L2)
+    rec["within_tol"] = all(rec[n]["within_tol"] for n in SSD_OUTPUTS)
+    rec["max_abs_err"] = max(rec[n]["max_abs_err"] for n in SSD_OUTPUTS)
+    return rec
+
+
 def zero_kv_tile(k, v, seq_dim: int):
     """The planted fault: K and V of one KV tile set to 0 (a dropped tile)."""
     k, v = k.clone(), v.clone()
@@ -165,18 +232,68 @@ def zero_kv_tile(k, v, seq_dim: int):
     return k, v
 
 
+def zero_x_block(x, chunk: int):
+    """The planted ssd fault: one 64-row j-block of x (B, S, H, P) zeroed in
+    the second chunk (its rows 64..127, cut at the chunk's end; the whole
+    chunk when it has 64 rows or fewer)."""
+    lo = chunk + 64 if chunk > 64 else chunk
+    x = x.clone()
+    x[:, lo:min(lo + 64, 2 * chunk)] = 0
+    return x
+
+
 def rel_l2(a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-# the slice's projections (K, N) and how often one forward launches each
+def row_rel_l2(a, b) -> float:
+    """The largest relative L2 of one position's logits (last dim)."""
+    a, b = a.float(), b.float()
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def free_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# the slice's projections (K, N) and how often one forward (or one decode
+# step) launches each
 def slice_matmuls(cfg):
     D, F_, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     QD, KVD = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
-    return [((D, QD), L), ((D, KVD), 2 * L), ((QD, D), L),   # wq; wk, wv; wo
-            ((D, F_), 2 * L), ((F_, D), L),                  # w_gate, w_up; w_down
-            ((D, cfg.vocab), 1)]                             # lm_head
+    dense = [((D, QD), 1), ((D, KVD), 2), ((QD, D), 1),   # wq; wk, wv; wo
+             ((D, F_), 2), ((F_, D), 1)]                  # w_gate, w_up; w_down
+    if cfg.family == "dense":
+        return [(kn, n * L) for kn, n in dense] + [((D, cfg.vocab), 1)]
+    d_inner = cfg.ssm_expand * D
+    d_in_proj = 2 * d_inner + 2 * cfg.ssm_state + d_inner // cfg.ssm_headdim
+    mixer = [((D, d_in_proj), L), ((d_inner, D), L)]      # in_proj, out_proj
+    shared = L // cfg.attn_every if cfg.family == "hybrid" else 0
+    return mixer + [(kn, n * shared) for kn, n in dense if shared] + [((D, cfg.vocab), 1)]
+
+
+def forward_launches(cfg) -> dict:
+    """Kernel launches of one prefill forward on the kernel path."""
+    shared = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    return {"ltrf_matmul": sum(n for _, n in slice_matmuls(cfg)),
+            "flash_attention": cfg.n_layers if cfg.family == "dense" else shared,
+            "ssd_scan": 0 if cfg.family == "dense" else cfg.n_layers}
+
+
+def ssd_bound(B, S, H, P, N, Q) -> tuple[float, str]:
+    """Bytes: each input read once, each output written once.  Operations:
+    the lower triangle of C B^T once per (b, chunk), and per head the lower
+    triangle of (C B^T o L)(x dt) and the state product, over the rows of
+    each chunk that lie inside S."""
+    nc = -(-S // Q)
+    rows = [min(Q, S - c * Q) for c in range(nc)]
+    tri = sum(q * (q + 1) / 2 for q in rows)
+    flops = B * (2 * N * tri + H * (2 * P * tri + 2 * P * N * sum(rows)))
+    nbytes = 4 * (B * S * H * P + B * S * H + H + 2 * B * S * N
+                  + B * nc * H * (Q * P + P * N + Q + 1))
+    return bound(nbytes, flops, torch.float32)
 
 
 def phase_device() -> dict:
@@ -189,21 +306,20 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
-    logs = _build.build(["ltrf_matmul", "flash_attention"])
+    logs = _build.build(KERNELS)
     summary = {}
-    for name in ("ltrf_matmul", "flash_attention"):
+    for name in KERNELS:
         log = logs.get(name) or (_build.BUILD_DIR / f"{name}.log").read_text()
         summary[name] = [ln.strip() for ln in log.splitlines()
-                         if "registers" in ln or "spill" in ln.lower()][:24]
+                         if "registers" in ln or "spill" in ln.lower()][:40]
     return {"ptxas": summary}
 
 
-def phase_kernel_checks(cfg, dev) -> dict:
-    gen = torch.Generator(dev).manual_seed(123)
-    res = {"ltrf_matmul": [], "flash_attention": []}
-    shapes = sorted({kn for kn, _ in slice_matmuls(cfg)})
+def check_matmuls(cfgs, dev, gen) -> list:
+    shapes = sorted({kn for cfg in cfgs for kn, _ in slice_matmuls(cfg)})
     cases = [(M, K, N, torch.bfloat16) for M in (8, 2048) for K, N in shapes]
     cases += [(300, 500, 200, torch.float32), (64, 1024, 96, torch.float32)]
+    res = []
     for M, K, N, dt in cases:
         x = torch.randn(M, K, device=dev, generator=gen).to(dt)
         w = (torch.randn(K, N, device=dev, generator=gen) / math.sqrt(K)).to(dt)
@@ -225,8 +341,12 @@ def phase_kernel_checks(cfg, dev) -> dict:
         del copies
         emit({"check": "ltrf_matmul", **rec})
         check(rec["within_tol"], f"ltrf_matmul {M}x{K}x{N} {dt} disagrees with plain: {rec}")
-        res["ltrf_matmul"].append(rec)
+        res.append(rec)
+    return res
 
+
+def check_flash(cfg, dev, gen) -> list:
+    res = []
     for B, H, KV, S, d in [(2, cfg.n_heads, cfg.n_kv_heads, 1024, cfg.hd),
                            (2, cfg.n_heads, cfg.n_kv_heads, 1000, cfg.hd),
                            (2, 8, 1, 1024, cfg.hd)]:
@@ -251,20 +371,72 @@ def phase_kernel_checks(cfg, dev) -> dict:
             (2 * q.numel() + k.numel() + v.numel()) * q.element_size(), 4 * d * pairs, dt)
         emit({"check": "flash_attention", **rec})
         check(rec["within_tol"], f"flash_attention {rec} disagrees with plain")
-        res["flash_attention"].append(rec)
+        res.append(rec)
     return res
+
+
+def ssd_inputs(B, S, H, P, N, dev, gen):
+    """Inputs at the scales the Mamba2 block gives the scan: x and B/C after
+    the conv's silu, dt a softplus, A = -linspace(1, 16) over the heads."""
+    x = F.silu(torch.randn(B, S, H, P, device=dev, generator=gen))
+    dt = F.softplus(torch.randn(B, S, H, device=dev, generator=gen))
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, H, device=dev)))
+    Bm = F.silu(torch.randn(B, S, N, device=dev, generator=gen))
+    Cm = F.silu(torch.randn(B, S, N, device=dev, generator=gen))
+    return x, dt, A, Bm, Cm
+
+
+def check_ssd(dev, gen) -> list:
+    res = []
+    # mamba2-1.3b prefill; the same with a ragged S; zamba2-1.2b prefill (N 64);
+    # Q = 96 with P = N = 16 (and S ragged against it)
+    for B, S, H, P, N, Q in [(2, 1024, 64, 64, 128, 256), (2, 1000, 64, 64, 128, 256),
+                             (2, 1024, 64, 64, 64, 256), (2, 1000, 16, 16, 16, 96)]:
+        ins = ssd_inputs(B, S, H, P, N, dev, gen)
+        got = ssd_chunk(*ins, Q)
+        torch.cuda.synchronize()
+        want = ssd_chunk_ref(*ins, Q)
+        rec = {"B": B, "S": S, "H": H, "P": P, "N": N, "Q": Q, "dtype": "float32",
+               **compare_ssd(got, want)}
+        x_bad = zero_x_block(ins[0], Q)
+        planted = compare_ssd(got, ssd_chunk_ref(x_bad, *ins[1:], Q))
+        rec["planted_fault"] = {n: planted[n]["rel_l2"] for n in SSD_OUTPUTS}
+        rec["planted_fault"]["within_tol"] = planted["within_tol"]
+        del got, want, x_bad
+        rec["ms"], rec["eager_ms"] = time_ms([lambda: ssd_chunk(*ins, Q)])
+        rec["plain_ms"], _ = time_ms([lambda: ssd_chunk_ref(*ins, Q)], min_iters=3)
+        rec["library_ms"] = None                 # no PyTorch call computes it
+        rec["bound_ms"], rec["bound_by"] = ssd_bound(B, S, H, P, N, Q)
+        emit({"check": "ssd_scan", **rec})
+        check(not planted["within_tol"], f"ssd check passes a zeroed x block: {rec}")
+        check(rec["within_tol"], f"ssd_scan {rec} disagrees with ssd_chunk_ref")
+        res.append(rec)
+        del ins
+        free_memory()
+    return res
+
+
+def phase_kernel_checks(cfgs, dev) -> dict:
+    gen = torch.Generator(dev).manual_seed(123)
+    return {"ltrf_matmul": check_matmuls(cfgs, dev, gen),
+            "flash_attention": check_flash(cfgs[0], dev, gen),
+            "ssd_scan": check_ssd(dev, gen)}
 
 
 def reset_counts() -> None:
     ltrf_matmul.launches = 0
     flash_attention.launches = 0
+    ssd_scan.launches = 0
 
 
 def read_counts() -> dict:
-    return {"ltrf_matmul": ltrf_matmul.launches, "flash_attention": flash_attention.launches}
+    return {"ltrf_matmul": ltrf_matmul.launches, "flash_attention": flash_attention.launches,
+            "ssd_scan": ssd_scan.launches}
 
 
 plain_attention = layers.causal_attention
+plain_carry = mamba2.chunk_carry
+plain_mask = mamba2._causal_mask
 
 
 @contextlib.contextmanager
@@ -284,20 +456,89 @@ def recording_flash():
         layers.flash_attention = flash_attention
 
 
-def phase_prefill(cfg, params, dev, seed) -> dict:
-    toks = torch.randint(0, cfg.vocab, (2, 1024), device=dev,
-                         generator=torch.Generator(dev).manual_seed(seed + 1))
-    batch = {"tokens": toks, "labels": toks}
+@contextlib.contextmanager
+def checking_ssd():
+    """Hold each ssd_chunk call the layers make against ssd_chunk_ref at its
+    inputs; keep the first call's inputs for a planted fault."""
+    recs, first = [], []
+
+    def record(x, dt, A, Bm, Cm, chunk):
+        out = ssd_chunk(x, dt, A, Bm, Cm, chunk)
+        recs.append(compare_ssd(out, ssd_chunk_ref(x, dt, A, Bm, Cm, chunk)))
+        if not first:
+            first.append(((x, dt, A, Bm, Cm, chunk), out))
+        return out
+
+    ssd_ops.ssd_chunk = record
+    try:
+        yield recs, first
+    finally:
+        ssd_ops.ssd_chunk = ssd_chunk
+
+
+def main_path_prefill(cfg, params, batch) -> tuple[torch.Tensor, dict, float]:
+    """One kernel-path ``loss_fn`` with the counts set to 0 just before it."""
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     loss, _ = loss_fn(params, batch, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()                        # the main path's launches
-    check(bool(torch.isfinite(loss)), f"prefill loss not finite: {loss}")
-    check(counts["ltrf_matmul"] == 7 * cfg.n_layers + 1
-          and counts["flash_attention"] == cfg.n_layers, f"prefill launches {counts}")
+    counts = read_counts()
+    check(bool(torch.isfinite(loss)), f"{cfg.name} prefill loss not finite: {loss}")
+    check(counts == forward_launches(cfg),
+          f"{cfg.name} prefill launches {counts}, want {forward_launches(cfg)}")
+    return loss, counts, wall
+
+
+def prefill_batch(cfg, dev, seed) -> dict:
+    toks = torch.randint(0, cfg.vocab, (2, 1024), device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed + 1))
+    return {"tokens": toks, "labels": toks}
+
+
+def loss_fn_ms(cfg, params, batch) -> dict:
+    out = {}
+    for name, kern in (("kernel", True), ("plain", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_fn(params, batch, cfg, kernels=kern)
+        torch.cuda.synchronize()
+        out[f"{name}_loss_fn_ms"] = 1e3 * (time.perf_counter() - t0)
+    return out
+
+
+def flash_per_layer(calls, n_expected) -> dict:
+    per_layer = [compare_flash(o, attention_ref(q, k, v)) for q, k, v, o in calls]
+    q, k, v, _ = calls[0]
+    planted = compare_flash(attention_ref(q, *zero_kv_tile(k, v, 2)), attention_ref(q, k, v))
+    rec = {"layers": len(per_layer), "max_abs_err": max(r["max_abs_err"] for r in per_layer),
+           "max_rel_l2": max(r["rel_l2"] for r in per_layer),
+           "within_tol": all(r["within_tol"] for r in per_layer), "planted_fault_layer0": planted}
+    check(len(per_layer) == n_expected and rec["within_tol"],
+          f"flash_attention vs plain at the model's inputs: {rec}")
+    check(not planted["within_tol"], f"flash check passes a zeroed KV tile: {planted}")
+    return rec
+
+
+def ssd_per_layer(recs, first, n_expected) -> dict:
+    (x, dt, A, Bm, Cm, chunk), out = first[0]
+    planted = compare_ssd(out, ssd_chunk_ref(zero_x_block(x, chunk), dt, A, Bm, Cm, chunk))
+    rec = {"layers": len(recs), "max_abs_err": max(r["max_abs_err"] for r in recs),
+           "max_rel_l2": {n: max(r[n]["rel_l2"] for r in recs) for n in SSD_OUTPUTS},
+           "max_excess": {n: max(r[n]["max_excess"] for r in recs) for n in SSD_OUTPUTS},
+           "within_tol": all(r["within_tol"] for r in recs),
+           "planted_fault_layer0": {"rel_l2": {n: planted[n]["rel_l2"] for n in SSD_OUTPUTS},
+                                    "within_tol": planted["within_tol"]}}
+    check(len(recs) == n_expected and rec["within_tol"],
+          f"ssd_scan vs ssd_chunk_ref at the model's inputs: {rec}")
+    check(not planted["within_tol"], f"ssd check passes a zeroed x block: {rec}")
+    return rec
+
+
+def phase_prefill(cfg, params, dev, seed) -> dict:
+    batch = prefill_batch(cfg, dev, seed)
+    loss, counts, wall = main_path_prefill(cfg, params, batch)
     # held against the plain path (these launches are not counted); the kernel
     # path's run also records each layer's flash_attention call
     with recording_flash() as calls:
@@ -311,17 +552,8 @@ def phase_prefill(cfg, params, dev, seed) -> dict:
            "logits_shape": list(logits_k.shape), "first_call_s": wall, "launches": counts}
     del logits_k
     # flash_attention at each layer's own inputs, against its plain version
-    per_layer = [compare_flash(o, attention_ref(q, k, v)) for q, k, v, o in calls]
-    q, k, v, _ = calls[0]
-    planted = compare_flash(attention_ref(q, *zero_kv_tile(k, v, 2)), attention_ref(q, k, v))
-    out["flash_per_layer"] = {
-        "layers": len(per_layer), "max_abs_err": max(r["max_abs_err"] for r in per_layer),
-        "max_rel_l2": max(r["rel_l2"] for r in per_layer),
-        "within_tol": all(r["within_tol"] for r in per_layer), "planted_fault_layer0": planted}
-    del calls, q, k, v
-    check(len(per_layer) == cfg.n_layers and out["flash_per_layer"]["within_tol"],
-          f"flash_attention vs plain at the model's inputs: {out['flash_per_layer']}")
-    check(not planted["within_tol"], f"flash check passes a zeroed KV tile: {planted}")
+    out["flash_per_layer"] = flash_per_layer(calls, cfg.n_layers)
+    del calls
     # what the model-level limit reads for planted attention faults on the
     # plain path: attention that is not causal, and one KV tile zeroed
     faults = {"not_causal": lambda q, k, v, q_block=512, q_offset=None: plain_attention(
@@ -338,12 +570,7 @@ def phase_prefill(cfg, params, dev, seed) -> dict:
         out["planted_model_faults"][name] = {"logits_rel_l2": rel_l2(logits_f, logits_p)}
         del logits_f
     del logits_p
-    for name, kern in (("kernel", True), ("plain", False)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss_fn(params, batch, cfg, kernels=kern)
-        torch.cuda.synchronize()
-        out[f"{name}_loss_fn_ms"] = 1e3 * (time.perf_counter() - t0)
+    out.update(loss_fn_ms(cfg, params, batch))
     check(out["logits_rel_l2"] <= MODEL_LOGITS_REL_L2, f"prefill logits vs plain: {out}")
     for name, fault in out["planted_model_faults"].items():
         check(fault["logits_rel_l2"] > MODEL_LOGITS_REL_L2,
@@ -352,35 +579,168 @@ def phase_prefill(cfg, params, dev, seed) -> dict:
     return out
 
 
-def phase_serve(cfg, params, dev, seed) -> dict:
-    torch.cuda.synchronize()
-    reset_counts()
-    stats = serve(ARCH, smoke=False, n_requests=16, max_new=12, seed=seed,
-                  active_slots=8, total_pages=64, max_len=256, device=dev)
-    counts = read_counts()                        # the main path's launches
-    check(stats["completed"] == 16, f"serve completed {stats['completed']}/16")
-    check(stats["pages_leaked"] == 0, f"serve leaked {stats['pages_leaked']} pages")
-    check(counts["ltrf_matmul"] == stats["steps"] * (7 * cfg.n_layers + 1),
-          f"serve launches {counts} over {stats['steps']} steps")
-    # the engine's first 4 steps (zeros in, shared cache_len 0..3) on both paths
+# planted SSM faults on the plain path: the state entering each chunk zeroed
+# (the inter-chunk carry dropped), and no causal mask inside a chunk
+SSM_FAULTS = {
+    "carry_dropped": ("chunk_carry",
+                      lambda st, dec: (plain_carry(st, dec)[0], torch.zeros_like(st))),
+    "mask_dropped": ("_causal_mask",
+                     lambda Q, device: torch.ones((Q, Q), dtype=torch.bool, device=device)),
+}
+
+
+def fp32_copy(tree):
+    """The same weights in fp32 (every bf16 value is exact in fp32)."""
+    if isinstance(tree, dict):
+        return {k: fp32_copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [fp32_copy(v) for v in tree]
+    return tree.float()
+
+
+plain_matmul = layers.matmul
+
+
+@contextlib.contextmanager
+def plain_matmuls_rounded_once():
+    """The plain path's products as ``matmul_ref`` (fp32 sums rounded once,
+    as the kernel rounds) in place of cuBLAS's bf16 GEMM."""
+    def mm(x, w, kernels=True):
+        return plain_matmul(x, w, kernels) if kernels else matmul_ref(x, w)
+
+    mods = (layers, mamba2, lm_module)
+    for mod in mods:
+        mod.matmul = mm
+    try:
+        yield
+    finally:
+        for mod in mods:
+            mod.matmul = plain_matmul
+
+
+def planted_ssm_faults(cfg, params, batch, logits_p) -> dict:
+    """What the model-level limit reads for each planted SSM fault."""
+    out = {}
+    for name, (attr, fault) in SSM_FAULTS.items():
+        orig = getattr(mamba2, attr)
+        setattr(mamba2, attr, fault)
+        try:
+            logits_f, _ = logits_fn(params, batch, cfg, kernels=False)
+        finally:
+            setattr(mamba2, attr, orig)
+        out[name] = {"logits_rel_l2": rel_l2(logits_f, logits_p),
+                     "logits_row_rel_l2": row_rel_l2(logits_f, logits_p)}
+        del logits_f
+    return out
+
+
+def ssm_prefill(cfg, params, dev, seed, faults: bool) -> dict:
+    """Kernel-path prefill of a Mamba2-family model, held against the plain
+    path in the model's dtype and in fp32, with each layer's flash and ssd
+    calls held against their plain versions."""
+    batch = prefill_batch(cfg, dev, seed)
+    loss, counts, wall = main_path_prefill(cfg, params, batch)
+    with recording_flash() as calls, checking_ssd() as (ssd_recs, ssd_first):
+        logits_k, _ = logits_fn(params, batch, cfg)
+    logits_p, _ = logits_fn(params, batch, cfg, kernels=False)
+    loss_p, _ = loss_fn(params, batch, cfg, kernels=False)
+    out = {"loss": float(loss), "loss_plain": float(loss_p),
+           "loss_rel_diff": abs(float(loss) - float(loss_p)) / abs(float(loss_p)),
+           "logits_rel_l2": rel_l2(logits_k, logits_p),
+           "logits_row_rel_l2": row_rel_l2(logits_k, logits_p),
+           "logits_max_abs_err": float((logits_k.float() - logits_p.float()).abs().max()),
+           "logits_shape": list(logits_k.shape), "first_call_s": wall, "launches": counts}
+    del logits_k
+    out["ssd_per_layer"] = ssd_per_layer(ssd_recs, ssd_first, cfg.n_layers)
+    del ssd_recs, ssd_first
+    if calls:
+        out["flash_per_layer"] = flash_per_layer(calls, forward_launches(cfg)["flash_attention"])
+    del calls
+    # what bf16 rounding alone does over this depth: the plain path with its
+    # products rounded once from fp32 sums, against the plain path
+    with plain_matmuls_rounded_once():
+        logits_r, _ = logits_fn(params, batch, cfg, kernels=False)
+    out["plain_rounding_rel_l2"] = rel_l2(logits_r, logits_p)
+    del logits_r
+    if faults:
+        out["planted_model_faults"] = planted_ssm_faults(cfg, params, batch, logits_p)
+    del logits_p
+    free_memory()
+    # the same weights and tokens in fp32: kernel path vs plain path, and the
+    # planted faults there
+    cfg32, params32 = dataclasses.replace(cfg, dtype="float32"), fp32_copy(params)
+    lk, _ = logits_fn(params32, batch, cfg32)
+    lp, _ = logits_fn(params32, batch, cfg32, kernels=False)
+    out["fp32"] = {"logits_rel_l2": rel_l2(lk, lp), "logits_row_rel_l2": row_rel_l2(lk, lp)}
+    del lk
+    if faults:
+        out["fp32"]["planted_model_faults"] = planted_ssm_faults(cfg32, params32, batch, lp)
+    del lp, params32
+    free_memory()
+    out.update(loss_fn_ms(cfg, params, batch))
+    check(out["fp32"]["logits_rel_l2"] <= SSM_FP32_REL_L2,
+          f"{cfg.name} fp32 prefill logits vs plain: {out}")
+    for name, fault in out["fp32"].get("planted_model_faults", {}).items():
+        check(fault["logits_rel_l2"] > SSM_FP32_REL_L2,
+              f"the fp32 model-level limit passes a planted SSM fault ({name}): {out}")
+    check(out["logits_rel_l2"] <= SSM_BF16_REL_L2, f"{cfg.name} prefill logits vs plain: {out}")
+    check(out["loss_rel_diff"] <= MODEL_LOSS_REL, f"{cfg.name} prefill loss vs plain: {out}")
+    return out
+
+
+def decode_vs_plain(cfg, params, dev, limit, steps: int = 4) -> list:
+    """The engine's first ``steps`` decode steps (zeros in, shared cache_len
+    0, 1, ...) on both paths, 8 slots, max_len 256."""
     ck = init_decode_cache(cfg, 8, 256, dev)
     cp = init_decode_cache(cfg, 8, 256, dev)
     toks = torch.zeros((8, 1), dtype=torch.long, device=dev)
-    steps = []
-    for step in range(4):
+    out = []
+    for step in range(steps):
         lk, ck = decode_step(params, ck, toks, step, cfg)
         lp, cp = decode_step(params, cp, toks, step, cfg, kernels=False)
-        steps.append({"step": step, "logits_rel_l2": rel_l2(lk, lp),
-                      "logits_max_abs_err": float((lk.float() - lp.float()).abs().max()),
-                      "argmax_agree": float((lk[:, -1].argmax(-1) == lp[:, -1].argmax(-1))
-                                            .float().mean())})
+        out.append({"step": step, "logits_rel_l2": rel_l2(lk, lp),
+                    "logits_max_abs_err": float((lk.float() - lp.float()).abs().max()),
+                    "argmax_agree": float((lk[:, -1].argmax(-1) == lp[:, -1].argmax(-1))
+                                          .float().mean())})
         toks = lk[:, -1].argmax(-1, keepdim=True)
-    check(all(s["logits_rel_l2"] <= MODEL_LOGITS_REL_L2 for s in steps),
-          f"decode logits vs plain: {steps}")
-    return {**stats, "launches": counts, "decode_vs_plain": steps}
+    del ck, cp
+    check(all(s["logits_rel_l2"] <= limit for s in out),
+          f"{cfg.name} ({cfg.dtype}) decode vs plain: {out}")
+    return out
 
 
-def phase_profile(cfg, params, dev) -> dict:
+def ssm_decode_vs_plain(cfg, params, dev) -> dict:
+    """Decode steps against the plain path in the model's dtype and in fp32."""
+    out = {"bf16": decode_vs_plain(cfg, params, dev, SSM_BF16_REL_L2)}
+    free_memory()
+    params32 = fp32_copy(params)
+    out["fp32"] = decode_vs_plain(dataclasses.replace(cfg, dtype="float32"), params32, dev,
+                                  SSM_FP32_REL_L2)
+    del params32
+    free_memory()
+    return out
+
+
+def main_path_serve(arch, cfg, dev, seed) -> dict:
+    torch.cuda.synchronize()
+    reset_counts()
+    stats = serve(arch, smoke=False, n_requests=16, max_new=12, seed=seed,
+                  active_slots=8, total_pages=64, max_len=256, device=dev)
+    counts = read_counts()                        # the main path's launches
+    check(stats["completed"] == 16, f"{arch} serve completed {stats['completed']}/16")
+    check(stats["pages_leaked"] == 0, f"{arch} serve leaked {stats['pages_leaked']} pages")
+    per_step = forward_launches(cfg)["ltrf_matmul"]
+    check(counts == {"ltrf_matmul": stats["steps"] * per_step, "flash_attention": 0,
+                     "ssd_scan": 0}, f"{arch} serve launches {counts} over {stats['steps']} steps")
+    return {**stats, "launches": counts}
+
+
+def phase_serve(cfg, params, dev, seed) -> dict:
+    stats = main_path_serve(ARCH, cfg, dev, seed)
+    return {**stats, "decode_vs_plain": decode_vs_plain(cfg, params, dev, MODEL_LOGITS_REL_L2)}
+
+
+def phase_profile(cfg, params, dev, trace_name="decode_trace.json") -> dict:
     """Device-busy share of decode steps run as the engine runs them (8 slots,
     argmax fetched to the host every step), from the profiler's kernel spans."""
     from torch.profiler import ProfilerActivity, profile
@@ -405,7 +765,7 @@ def phase_profile(cfg, params, dev) -> dict:
         wall = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    trace = out_dir / "decode_trace.json"
+    trace = out_dir / trace_name
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
     spans = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
@@ -414,44 +774,90 @@ def phase_profile(cfg, params, dev) -> dict:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    # a step reads every weight but the embedding table (of which it gathers
+    # 8 rows), reads and writes the SSM state and conv window, and reads the
+    # KV caches (whole, as plain decode attention does)
+    nbytes = {"weights": sum(t.numel() * t.element_size() for k, v in params.items()
+                             if k != "embed" for t in _leaves(v)),
+              "ssm_state": sum(t.numel() * t.element_size() for k, t in cache.items()
+                               if k in ("ssm", "conv")),
+              "kv_cache": sum(t.numel() * t.element_size() for k, t in cache.items()
+                              if k in ("k", "v"))}
     return {"steps": n_steps, "wall_ms_per_step": 1e3 * wall / n_steps,
             "device_busy_ms_per_step": busy_ms / n_steps,
             "device_busy_share": busy_ms / (1e3 * wall),
             "device_ops_per_step": len(spans) / n_steps,
-            "top_kernels_ms_per_step": [(name[:80], d / 1e3 / n_steps) for name, d in top]}
+            "top_kernels_ms_per_step": [(name[:80], d / 1e3 / n_steps) for name, d in top],
+            "bytes_per_step": nbytes,
+            "hbm_bound_ms_per_step": 1e3 * (nbytes["weights"] + 2 * nbytes["ssm_state"]
+                                            + nbytes["kv_cache"]) / HBM_BYTES_PER_S}
 
 
-def kernels_line(cfg, checks, prefill, served) -> dict:
-    launches = {n: prefill["launches"][n] + served["launches"][n]
-                for n in ("ltrf_matmul", "flash_attention")}
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_prefill_mamba2(cfg, params, dev, seed) -> dict:
+    return ssm_prefill(cfg, params, dev, seed, faults=True)
+
+
+def phase_serve_mamba2(cfg, params, dev, seed) -> dict:
+    stats = main_path_serve(SSM_ARCH, cfg, dev, seed)
+    free_memory()
+    return {**stats, "decode_vs_plain": ssm_decode_vs_plain(cfg, params, dev),
+            "profile": phase_profile(cfg, params, dev, f"decode_trace_{SSM_ARCH}.json")}
+
+
+def phase_prefill_zamba2(cfg, params, dev, seed) -> dict:
+    out = ssm_prefill(cfg, params, dev, seed, faults=False)
+    out["decode_vs_plain"] = ssm_decode_vs_plain(cfg, params, dev)
+    return out
+
+
+def kernels_line(cfgs, checks, paths) -> dict:
+    """``paths``: each main path's launch counts, by phase."""
+    launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     mm = {(r["M"], r["K"], r["N"]): r for r in checks["ltrf_matmul"] if r["dtype"] == "bfloat16"}
 
-    def mix(M, key):
-        return sum(n * mm[(M, K, N)][key] for (K, N), n in slice_matmuls(cfg))
+    def mix(cfg, M):
+        shapes = slice_matmuls(cfg)
+        rec = {key: sum(n * mm[(M, K, N)][key] for (K, N), n in shapes)
+               for key in ("ms", "plain_ms", "library_ms")}
+        nbytes = sum(n * (M * K + K * N + M * N) * 2 for (K, N), n in shapes)
+        flops = sum(n * 2 * M * K * N for (K, N), n in shapes)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, torch.bfloat16)
+        rec["launches"] = sum(n for _, n in shapes)
+        return rec
 
-    def mix_bound(M):
-        nbytes = sum(n * (M * K + K * N + M * N) * 2 for (K, N), n in slice_matmuls(cfg))
-        flops = sum(n * 2 * M * K * N for (K, N), n in slice_matmuls(cfg))
-        return bound(nbytes, flops, torch.bfloat16)
-
-    dec_bound, dec_by = mix_bound(8)
-    pre_bound, pre_by = mix_bound(2048)
+    mixes = {cfg.name: {"decode_m8": mix(cfg, 8), "prefill_m2048": mix(cfg, 2048)}
+             for cfg in cfgs}
+    tiny = mixes[ARCH]
     fa = checks["flash_attention"][0]
-    per_step = 7 * cfg.n_layers + 1
+    ssd = checks["ssd_scan"][0]
     return {"kernels": [
         {"name": "ltrf_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/ltrf_matmul.cu",
          "replaces": "src/repro/kernels/ltrf_matmul/kernel.py:48",
          "launches": launches["ltrf_matmul"],
          "max_abs_err": max(r["max_abs_err"] for r in mm.values()),
-         "ms": mix(8, "ms"), "plain_ms": mix(8, "plain_ms"), "bound_ms": dec_bound,
-         "bound_by": dec_by, "library_ms": mix(8, "library_ms"),
-         "unit": f"one decode step's matmuls: {per_step} launches at M=8, bf16",
-         "prefill_ms": mix(2048, "ms"), "prefill_plain_ms": mix(2048, "plain_ms"),
-         "prefill_library_ms": mix(2048, "library_ms"), "prefill_bound_ms": pre_bound,
-         "prefill_bound_by": pre_by,
-         "launches_prefill": prefill["launches"]["ltrf_matmul"],
-         "launches_serve": served["launches"]["ltrf_matmul"]},
+         "ms": tiny["decode_m8"]["ms"], "plain_ms": tiny["decode_m8"]["plain_ms"],
+         "bound_ms": tiny["decode_m8"]["bound_ms"], "bound_by": tiny["decode_m8"]["bound_by"],
+         "library_ms": tiny["decode_m8"]["library_ms"],
+         "unit": (f"one {ARCH} decode step's matmuls: {tiny['decode_m8']['launches']} "
+                  "launches at M=8, bf16; per-arch decode and prefill mixes in 'mixes'"),
+         "prefill_ms": tiny["prefill_m2048"]["ms"],
+         "prefill_plain_ms": tiny["prefill_m2048"]["plain_ms"],
+         "prefill_library_ms": tiny["prefill_m2048"]["library_ms"],
+         "prefill_bound_ms": tiny["prefill_m2048"]["bound_ms"],
+         "prefill_bound_by": tiny["prefill_m2048"]["bound_by"],
+         "mixes": mixes, "launches_by_path": {k: p["ltrf_matmul"] for k, p in paths.items()}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:64",
@@ -460,9 +866,21 @@ def kernels_line(cfg, checks, prefill, served) -> dict:
          "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
          "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
          "unit": (f"one launch at B={fa['B']}, H={fa['H']}, KV={fa['KV']}, S={fa['S']}, "
-                  f"d={fa['d']}, bf16, causal ({cfg.n_layers} per prefill forward)"),
-         "launches_prefill": prefill["launches"]["flash_attention"],
-         "launches_serve": served["launches"]["flash_attention"]},
+                  f"d={fa['d']}, bf16, causal (22 per {ARCH} prefill forward, "
+                  f"6 per {HYBRID_ARCH})"),
+         "launches_by_path": {k: p["flash_attention"] for k, p in paths.items()}},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/kernel.py:61",
+         "launches": launches["ssd_scan"],
+         "max_abs_err": max(r["max_abs_err"] for r in checks["ssd_scan"]),
+         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"], "bound_ms": ssd["bound_ms"],
+         "bound_by": ssd["bound_by"], "library_ms": None,
+         "library_note": "no single PyTorch call computes the chunked SSD",
+         "unit": (f"one launch at B={ssd['B']}, S={ssd['S']}, H={ssd['H']}, P={ssd['P']}, "
+                  f"N={ssd['N']}, Q={ssd['Q']}, fp32 (48 per {SSM_ARCH} prefill forward, "
+                  f"38 per {HYBRID_ARCH})"),
+         "launches_by_path": {k: p["ssd_scan"] for k, p in paths.items()}},
     ]}
 
 
@@ -476,25 +894,34 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg = get_arch(ARCH)
+    cfgs = [get_arch(a) for a in (ARCH, SSM_ARCH, HYBRID_ARCH)]
     results: dict = {}
 
     def run(name, fn, *a):
         t0 = time.perf_counter()
         results[name] = fn(*a)
         emit({"phase": name, "wall_s": time.perf_counter() - t0,
-              **{k: v for k, v in results[name].items()
-                 if k not in ("ltrf_matmul", "flash_attention")}})
+              **{k: v for k, v in results[name].items() if k not in KERNELS}})
 
     t_start = time.perf_counter()
     run("device", phase_device)
     run("build", phase_build)
-    run("kernel_checks", phase_kernel_checks, cfg, dev)
-    params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed), dev)
-    run("prefill", phase_prefill, cfg, params, dev, args.seed)
-    run("serve", phase_serve, cfg, params, dev, args.seed)
-    run("profile", phase_profile, cfg, params, dev)
-    line = kernels_line(cfg, results["kernel_checks"], results["prefill"], results["serve"])
+    run("kernel_checks", phase_kernel_checks, cfgs, dev)
+    paths = {}
+    for cfg, phases in [
+            (cfgs[0], [("prefill", phase_prefill), ("serve", phase_serve)]),
+            (cfgs[1], [("prefill_mamba2", phase_prefill_mamba2),
+                       ("serve_mamba2", phase_serve_mamba2)]),
+            (cfgs[2], [("prefill_zamba2", phase_prefill_zamba2)])]:
+        params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed), dev)
+        for name, fn in phases:
+            run(name, fn, cfg, params, dev, args.seed)
+            paths[name] = results[name]["launches"]
+        if cfg.name == ARCH:
+            run("profile", phase_profile, cfg, params, dev)
+        del params
+        free_memory()
+    line = kernels_line(cfgs, results["kernel_checks"], paths)
     for k in line["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
     out_dir = ROOT / "chiprun_out"

@@ -9,9 +9,10 @@ request scheduler and the page allocator) are kept here as copies.
 Entry points (``models.lm.init_params``, ``serving.ServingEngine``,
 ``launch.serve.serve``) run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.  On a CUDA tensor every dense projection goes through the
-hand-written ``ltrf_matmul`` kernel and prefill attention through the
-``flash_attention`` kernel (``csrc/``); on a CPU tensor the same wrappers run
-their plain PyTorch versions.
+hand-written ``ltrf_matmul`` kernel, prefill attention through the
+``flash_attention`` kernel and the Mamba2 chunked scan through the
+``ssd_scan`` kernel (``csrc/``); on a CPU tensor the same wrappers run their
+plain PyTorch versions.
 """
 import torch
 

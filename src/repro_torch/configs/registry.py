@@ -23,7 +23,7 @@ ARCH_IDS = [
     "zamba2-1.2b",
 ]
 
-PORTED_ARCH_IDS = ("tinyllama-1.1b", "qwen3-0.6b")
+PORTED_ARCH_IDS = ("tinyllama-1.1b", "qwen3-0.6b", "mamba2-1.3b", "zamba2-1.2b")
 
 _NOT_PORTED = {
     "phi3-medium-14b": "ROADMAP queue 1 item 5 (remaining dense configs)",
@@ -32,8 +32,6 @@ _NOT_PORTED = {
     "dbrx-132b": "ROADMAP queue 1 item 5 (moe family)",
     "llava-next-34b": "ROADMAP queue 1 item 5 (vlm family)",
     "musicgen-large": "ROADMAP queue 1 item 5 (audio family)",
-    "mamba2-1.3b": "ROADMAP queue 1 item 4 (ssm family, ssd_scan kernel)",
-    "zamba2-1.2b": "ROADMAP queue 1 item 4 (hybrid family, ssd_scan kernel)",
 }
 
 

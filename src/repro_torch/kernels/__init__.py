@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels (``csrc/``) with their ctypes wrappers.
+"""Hand-written Hopper kernels (``csrc/``) with their ctypes wrappers:
+``ltrf_matmul``, ``flash_attention`` and ``ssd_scan``.
 
 Each ``kernels/<name>/`` holds ``ref.py`` (the plain PyTorch version, run for
 CPU tensors and used as the yardstick on the card) and ``ops.py`` (the

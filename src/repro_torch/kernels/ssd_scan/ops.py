@@ -1,0 +1,111 @@
+"""Wrapper: the Mamba2 SSD scan with its intra-chunk part on a Hopper kernel.
+
+``ssd_chunk(x, dt, A, Bm, Cm, chunk)`` returns the TPU kernel's four outputs.
+It runs the plain version (``ref.ssd_chunk_ref``) when every input lies on
+the CPU.  For CUDA tensors it checks them and launches ``csrc/ssd_scan.cu``
+on the current stream; anything the kernel does not take raises.  bf16
+inputs are cast to fp32 first, as the TPU kernel's first lines do.  Unlike
+the TPU wrapper, S need not be a multiple of the chunk: the kernel treats
+rows past S as the zero padding (dt = x = B = C = 0).
+
+``ssd_scan`` is the full scan with the contract of the JAX package's
+``ssd_scan``: the chunk outputs, then the inter-chunk recurrence over
+(B, H, P, N) states and the ``y_inter`` product in torch, as the JAX wrapper
+keeps them outside Pallas.  ``ssd_scan.launches`` counts the kernel's
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from .ref import chunk_carry, ssd_chunk_ref, ssd_ref
+
+MAX_CHUNK = 256
+MAX_DIM = 128          # P and N
+
+
+def _library():
+    lib = _build.load("ssd_scan")
+    fn = lib.ssd_chunk_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_chunk(x, dt, A, Bm, Cm, chunk: int):
+    """x: (B,S,H,P); dt: (B,S,H); A: (H,); Bm/Cm: (B,S,N) -> (y_intra
+    (B,nc,H,Q,P), states (B,nc,H,P,N), in_decay (B,nc,H,Q), chunk_decay
+    (B,nc,H,1)), all fp32, with Q = ``chunk`` and nc = ceil(S / Q)."""
+    ins = (x, dt, A, Bm, Cm)
+    if all(t.device.type == "cpu" for t in ins):
+        return ssd_chunk_ref(x, dt, A, Bm, Cm, chunk)
+    if x.device.type != "cuda" or any(t.device != x.device for t in ins):
+        raise ValueError("ssd_chunk: x, dt, A, Bm, Cm must all be on the CPU or "
+                         "on one CUDA device")
+    if any(t.dtype not in (torch.float32, torch.bfloat16) for t in ins):
+        raise TypeError(f"ssd_chunk: dtypes {[t.dtype for t in ins]}; need float32 "
+                        "or bfloat16")
+    x, dt, A, Bm, Cm = (t.float() for t in ins)
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3:
+        raise ValueError(f"ssd_chunk: shapes {[tuple(t.shape) for t in ins]}")
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if (tuple(dt.shape) != (Bsz, S, H) or tuple(A.shape) != (H,)
+            or tuple(Bm.shape) != (Bsz, S, N) or Cm.shape != Bm.shape):
+        raise ValueError(f"ssd_chunk: shapes {[tuple(t.shape) for t in ins]} do not "
+                         "match x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N)")
+    if not (0 < chunk <= MAX_CHUNK and 0 < P <= MAX_DIM and 0 < N <= MAX_DIM
+            and P % 4 == 0 and N % 4 == 0 and S > 0):
+        raise ValueError(f"ssd_chunk: chunk {chunk}, P {P}, N {N}, S {S}: the kernel "
+                         f"takes chunk <= {MAX_CHUNK}, P and N multiples of 4 up to "
+                         f"{MAX_DIM}, S > 0")
+    if not all(t.is_contiguous() for t in (x, dt, A, Bm, Cm)):
+        raise ValueError("ssd_chunk: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (x, Bm, Cm)):
+        raise ValueError("ssd_chunk: x, Bm, Cm must be 16-byte aligned")
+    nc = -(-S // chunk)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((Bsz, nc, H, chunk, P), **f32)
+    states = torch.empty((Bsz, nc, H, P, N), **f32)
+    in_decay = torch.empty((Bsz, nc, H, chunk), **f32)
+    chunk_decay = torch.empty((Bsz, nc, H, 1), **f32)
+    launch = _library()
+    with torch.cuda.device(x.device):
+        err = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                     Cm.data_ptr(), y.data_ptr(), states.data_ptr(),
+                     in_decay.data_ptr(), chunk_decay.data_ptr(),
+                     Bsz, S, H, P, N, chunk, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
+    ssd_scan.launches += 1
+    return y, states, in_decay, chunk_decay
+
+
+def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 64):
+    """Chunked SSD forward.  Same contract as ``ssd_ref``.
+
+    x: (B,S,H,P); dt: (B,S,H); A: (H,); Bm/Cm: (B,S,N)
+    -> (y: (B,S,H,P) in x's dtype, final_state: (B,H,P,N) fp32)
+    """
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    y_intra, states, in_decay, chunk_decay = ssd_chunk(x, dt, A, Bm, Cm, Q)
+    nc = states.shape[1]
+    final, prev = chunk_carry(states, chunk_decay[..., 0])
+
+    # Y_inter[i] = (C_i . h_prev_chunk) * exp(cum_i)
+    Cc = F.pad(Cm.float(), (0, 0, 0, nc * Q - S)).reshape(Bsz, nc, Q, N)
+    y_inter = torch.einsum("bcin,bchpn,bchi->bchip", Cc, prev, in_decay)
+    y = (y_intra + y_inter).transpose(2, 3).reshape(Bsz, nc * Q, H, P)
+    return y[:, :S].to(x.dtype), final
+
+
+ssd_scan.launches = 0
+
+__all__ = ["ssd_chunk", "ssd_chunk_ref", "ssd_ref", "ssd_scan"]

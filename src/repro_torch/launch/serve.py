@@ -1,6 +1,7 @@
 """Serving driver: continuous batching with paged KV on one device.
 
 ``python -m repro_torch.launch.serve --arch tinyllama-1.1b --full``
+(or ``--arch mamba2-1.3b`` / ``zamba2-1.2b``)
 
 Wraps the ServingEngine (two-level request scheduler + the paper's Address
 Allocation Unit for KV pages) with a synthetic request generator and random

@@ -2,7 +2,8 @@
 
 ``params_from_numpy`` takes the JAX params pytree with every leaf converted
 to a numpy array (layers stacked on a leading L axis) and returns the port's
-params (a list of per-layer dicts), each leaf in its original dtype.  bf16
+params (a list of per-layer dicts, and nested dicts such as the hybrid's
+``shared_attn`` as they are), each leaf in its original dtype.  bf16
 leaves arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses;
 they go through float32, which holds every bf16 value exactly.
 """
@@ -13,7 +14,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from .lm import _require_dense
+from .lm import _require_ported
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -30,9 +31,9 @@ def _map(tree, fn):
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
-    params = {k: _tensor(v, dev) for k, v in tree.items() if k != "layers"}
+    params = {k: _map(v, lambda a: _tensor(a, dev)) for k, v in tree.items() if k != "layers"}
     params["layers"] = [_map(tree["layers"], lambda a, i=i: _tensor(np.asarray(a)[i], dev))
                         for i in range(cfg.n_layers)]
     return params

@@ -2,11 +2,13 @@
 
 Continuous batching over ``decode_step``: the two-level request scheduler
 (paged KV via the Address Allocation Unit) decides which requests own the
-``active_slots`` rows of a dense (L, B_slots, S_max, kv, hd) cache.  As in the
-reference, all slots share one ``cache_len`` (clamped to ``max_len - 1``),
-each slot is fed its previous greedy token (zeros at first; prompts only set
-``prompt_len`` for paging), and the step's tokens map onto the active
-requests in order.
+``active_slots`` rows of the decode cache (a dense (L, B_slots, S_max, kv, hd)
+KV cache, or the Mamba2 families' conv window and SSM state).  As in the
+reference, all slots share one ``cache_len`` (clamped to ``max_len - 1``;
+the ssm family ignores it), each slot is fed its previous greedy token (zeros
+at first; prompts only set ``prompt_len`` for paging), the step's tokens map
+onto the active requests in order, and a slot's SSM state is not reset when
+a new request takes the slot.
 """
 from __future__ import annotations
 

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.ltrf_matmul import ltrf_matmul, matmul_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_ref, ssd_scan  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -24,6 +25,10 @@ TOL = {torch.bfloat16: dict(rtol=3e-2, atol=8e-2), torch.float32: dict(rtol=2e-4
 # so in bf16 they differ by at most one ulp (< 8e-3 of the value); its
 # outputs are averages over the keys, well below 1, so the atol is small
 FLASH_TOL = {torch.bfloat16: dict(rtol=1e-2, atol=1e-3), torch.float32: TOL[torch.float32]}
+# ssd_scan's chunk kernel against ssd_chunk_ref, both fp32 (chip_smoke.py's
+# limits and their reasons): a relative L2 per output, and elementwise rtol
+# 1e-2 with atol 1e-3 times each output's RMS
+SSD_RTOL, SSD_ATOL, SSD_REL_L2 = 1e-2, 1e-3, 1e-4
 
 
 @pytest.fixture
@@ -86,3 +91,93 @@ def test_smoke_model_kernel_path_matches_plain_path(dev, arch):
     assert flash_attention.launches - before[1] == cfg.n_layers
     want, _ = lm.logits_fn(params, batch, cfg, kernels=False)
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+def _ssd_inputs(B, S, H, P, N, dev, seed=0):
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.nn.functional.silu(torch.randn(B, S, H, P, device=dev, generator=g))
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, device=dev, generator=g))
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    Bm, Cm = (torch.nn.functional.silu(torch.randn(B, S, N, device=dev, generator=g))
+              for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_within(got, want) -> bool:
+    ok = True
+    for g, w in zip(got, want):
+        rms = w.square().mean().sqrt()
+        ok &= bool(((g - w).abs() <= SSD_ATOL * rms + SSD_RTOL * w.abs()).all())
+        ok &= bool((g - w).norm() <= SSD_REL_L2 * w.norm())
+    return ok
+
+
+@pytest.mark.parametrize("shape", [(2, 1024, 8, 64, 128, 256), (1, 1000, 4, 64, 128, 256),
+                                   (2, 1024, 4, 64, 64, 256), (2, 300, 3, 16, 16, 96),
+                                   (1, 77, 2, 8, 12, 32), (1, 40, 2, 4, 4, 16),
+                                   (1, 130, 2, 128, 128, 64)])
+def test_ssd_chunk_matches_plain(dev, shape):
+    B, S, H, P, N, Q = shape
+    ins = _ssd_inputs(B, S, H, P, N, dev)
+    before = ssd_scan.launches
+    got = ssd_chunk(*ins, Q)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want = ssd_chunk_ref(*ins, Q)
+    assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
+    assert _ssd_within(got, want)
+
+
+def test_ssd_check_catches_a_zeroed_block(dev):
+    ins = _ssd_inputs(2, 1024, 4, 64, 128, dev, seed=3)
+    got = ssd_chunk(*ins, 256)
+    x = ins[0].clone()
+    x[:, 320:384] = 0                          # rows 64..127 of the second chunk
+    assert not _ssd_within(got, ssd_chunk_ref(x, *ins[1:], 256))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_matches_recurrence(dev, dtype):
+    ins = [t.to(dtype) if i != 2 else t for i, t in enumerate(_ssd_inputs(1, 200, 3, 16, 32, dev))]
+    y, fin = ssd_scan(*ins, chunk=64)
+    yr, finr = ssd_ref(*ins)
+    assert y.dtype == dtype and fin.dtype == torch.float32
+    tol = TOL[dtype] if dtype == torch.bfloat16 else dict(rtol=3e-3, atol=3e-3)
+    torch.testing.assert_close(y.float(), yr.float(), **tol)
+    torch.testing.assert_close(fin, finr, rtol=3e-3, atol=3e-3)
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    ins = _ssd_inputs(1, 64, 2, 8, 16, dev)
+    with pytest.raises(ValueError):
+        ssd_chunk(*ins, 512)                      # chunk > 256
+    with pytest.raises(ValueError):
+        ssd_chunk(ins[0][..., :6].contiguous(), *ins[1:], 32)   # P not a multiple of 4
+    with pytest.raises(ValueError):
+        ssd_chunk(ins[0].transpose(1, 2).contiguous().transpose(1, 2), *ins[1:], 32)
+    with pytest.raises(TypeError):
+        ssd_chunk(*[t.half() for t in ins], 32)
+    with pytest.raises(ValueError):
+        ssd_chunk(ins[0].cpu(), *ins[1:], 32)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_ssm_smoke_model_kernel_path_matches_plain_path(dev, arch):
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=dev,
+                         generator=torch.Generator(dev).manual_seed(1))
+    batch = {"tokens": toks, "labels": toks}
+    shared = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    before = ltrf_matmul.launches, flash_attention.launches, ssd_scan.launches
+    got, _ = lm.logits_fn(params, batch, cfg)
+    assert ltrf_matmul.launches - before[0] == 2 * cfg.n_layers + 7 * shared + 1
+    assert flash_attention.launches - before[1] == shared
+    assert ssd_scan.launches - before[2] == cfg.n_layers
+    want, _ = lm.logits_fn(params, batch, cfg, kernels=False)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    ck, cp = (lm.init_decode_cache(cfg, 2, 8, dev) for _ in range(2))
+    for step in range(3):
+        lk, ck = lm.decode_step(params, ck, toks[:, step:step + 1], step, cfg)
+        lp, cp = lm.decode_step(params, cp, toks[:, step:step + 1], step, cfg, kernels=False)
+        torch.testing.assert_close(lk, lp, rtol=1e-3, atol=1e-3)

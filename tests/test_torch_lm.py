@@ -22,7 +22,8 @@ from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.models import lm as T  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
-ARCHS = ["tinyllama-1.1b", "qwen3-0.6b"]
+ARCHS = ["tinyllama-1.1b", "qwen3-0.6b", "mamba2-1.3b", "zamba2-1.2b"]
+SSM_ARCHS = ["mamba2-1.3b", "zamba2-1.2b"]
 FP32 = dict(rtol=1e-3, atol=1e-3)
 
 
@@ -89,7 +90,9 @@ def test_decode_steps_and_cache(arch):
     B, S_max = 3, 8
     jc, _ = J.init_decode_cache(jcfg, B, S_max)
     tc = T.init_decode_cache(tcfg, B, S_max, device="cpu")
-    assert tuple(tc["k"].shape) == jc["k"].shape
+    assert tc.keys() == jc.keys()
+    for key in jc:
+        assert tuple(tc[key].shape) == jc[key].shape, key
     rng = np.random.default_rng(2)
     decode = jax.jit(lambda p, c, t, n: J.decode_step(p, c, t, n, jcfg))
     for step in range(6):
@@ -98,10 +101,22 @@ def test_decode_steps_and_cache(arch):
         tl, tc = T.decode_step(tp, tc, torch.from_numpy(toks).long(), step, tcfg)
         assert tuple(tl.shape) == jl.shape
         assert_close(tl, jl, **FP32)
-        assert_close(tc["k"], jc["k"], **FP32)
-        assert_close(tc["v"], jc["v"], **FP32)
+        for key in jc:                           # every cache entry
+            assert_close(tc[key], jc[key], **FP32)
         np.testing.assert_array_equal(tl[:, -1].argmax(-1).numpy(),
                                       np.asarray(jnp.argmax(jl[:, -1], -1)))
+
+def _flat(p, prefix=""):
+    out = {}
+    for k, v in p.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        elif isinstance(v, list):
+            for i, layer in enumerate(v):
+                out.update(_flat(layer, f"{prefix}{k}.{i}."))
+        else:
+            out[prefix + k] = v
+    return out
 
 
 def test_init_params_shapes_match_reference():
@@ -109,25 +124,66 @@ def test_init_params_shapes_match_reference():
     jp, _ = J.init_params(jcfg, jax.random.PRNGKey(0))
     tp = T.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     ref = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
-
-    def flat(p):
-        out = {k: v for k, v in p.items() if k != "layers"}
-        for i, layer in enumerate(p["layers"]):
-            for blk, d in layer.items():
-                for name, t in (d.items() if isinstance(d, dict) else [("", d)]):
-                    out[f"{i}.{blk}.{name}"] = t
-        return out
-
-    got, want = flat(tp), flat(ref)
+    got, want = _flat(tp), _flat(ref)
     assert got.keys() == want.keys()
     for k in got:
         assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype, k
 
 
-@pytest.mark.parametrize("family_arch", ["mamba2-1.3b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("family_arch", ["musicgen-large", "granite-moe-3b-a800m"])
 def test_unported_families_raise(family_arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_smoke(family_arch)
     cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.init_params(cfg, device="cpu")
+
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_init_params_shapes_match_reference_ssm_families(arch):
+    jcfg, tcfg = _configs(arch, "bfloat16")
+    jp, _ = J.init_params(jcfg, jax.random.PRNGKey(0))
+    got = _flat(T.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu"))
+    want = _flat(params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu"))
+    assert got.keys() == want.keys()
+    assert ("shared_attn.attn.wq" in got) == (arch == "zamba2-1.2b")
+    for k in got:
+        assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype, k
+
+
+def test_params_from_numpy_is_exact_hybrid():
+    """zamba2's layers nest {"mixer": {...}, "norm"}, and its top-level
+    shared_attn is a dict: every leaf comes across bit for bit."""
+    jcfg, tcfg = _configs("zamba2-1.2b", "bfloat16")
+    jp, tp = _params(jcfg, tcfg)
+    want = jax.tree.map(np.asarray, jp)
+    assert len(tp["layers"]) == tcfg.n_layers
+    for name in ("in_proj", "conv", "A_log", "out_proj"):
+        for i in range(tcfg.n_layers):
+            t, j = tp["layers"][i]["mixer"][name], want["layers"]["mixer"][name][i]
+            assert str(t.dtype).split(".")[-1] == j.dtype.name and t.is_contiguous()
+            np.testing.assert_array_equal(t.float().numpy(), j.astype(np.float32))
+    for blk, name in (("attn", "wq"), ("attn", "wo"), ("mlp", "w_down"), ("norm1", None)):
+        t = tp["shared_attn"][blk] if name is None else tp["shared_attn"][blk][name]
+        j = want["shared_attn"][blk] if name is None else want["shared_attn"][blk][name]
+        assert str(t.dtype).split(".")[-1] == j.dtype.name
+        np.testing.assert_array_equal(t.float().numpy(), j.astype(np.float32))
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_decode_cache_dtypes_after_first_step(arch):
+    """bf16 model: after one step the reference's SSM state is fp32 and the
+    conv window (and the hybrid's K/V) stay bf16; the port holds the same."""
+    jcfg, tcfg = _configs(arch, "bfloat16")
+    jp, tp = _params(jcfg, tcfg)
+    jc, _ = J.init_decode_cache(jcfg, 2, 8)
+    tc = T.init_decode_cache(tcfg, 2, 8, device="cpu")
+    toks = np.array([[3], [7]], np.int32)
+    jl, jc = J.decode_step(jp, jc, jnp.asarray(toks), jnp.int32(0), jcfg)
+    tl, tc = T.decode_step(tp, tc, torch.from_numpy(toks).long(), 0, tcfg)
+    for key in jc:
+        assert str(tc[key].dtype).split(".")[-1] == jc[key].dtype.name, key
+    assert tc["ssm"].dtype == torch.float32 and tc["conv"].dtype == torch.bfloat16
+    assert_close(tl, jl, "bfloat16")
+    assert_close(tc["ssm"], jc["ssm"], "bfloat16")

@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.ltrf_matmul import ltrf_matmul, matmul_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_scan  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models.lm import init_decode_cache, init_params  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
@@ -61,12 +62,30 @@ def test_cuda_default_entry_points_raise_without_card(no_card, entry):
         calls[entry]()
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+@pytest.mark.parametrize("entry", ["engine", "init_params", "decode_cache", "serve"])
+def test_ssm_family_entry_points_raise_without_card(no_card, entry, arch):
+    cfg = get_smoke(arch)
+    calls = {
+        "engine": lambda: ServingEngine(cfg),
+        "init_params": lambda: init_params(cfg),
+        "decode_cache": lambda: init_decode_cache(cfg, 2, 8),
+        "serve": lambda: serve(arch),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        calls[entry]()
+
+
 def test_wrappers_take_plain_path_only_for_cpu_tensors():
     x, w = torch.randn(8, 16), torch.randn(16, 24)
     torch.testing.assert_close(ltrf_matmul(x, w), matmul_ref(x, w), rtol=0, atol=0)
     q, k = torch.randn(1, 4, 10, 32), torch.randn(1, 2, 10, 32)
     torch.testing.assert_close(flash_attention(q, k, k), attention_ref(q, k, k), rtol=0, atol=0)
-    before = (ltrf_matmul.launches, flash_attention.launches)
+    ssd_in = (torch.randn(1, 20, 2, 4), torch.rand(1, 20, 2), -torch.rand(2),
+              torch.randn(1, 20, 8), torch.randn(1, 20, 8))
+    for got, want in zip(ssd_chunk(*ssd_in, chunk=8), ssd_chunk_ref(*ssd_in, chunk=8)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    before = (ltrf_matmul.launches, flash_attention.launches, ssd_scan.launches)
     # a tensor that is not on the CPU never reaches the plain version
     for args in [(x.to("meta"), w.to("meta")), (x, w.to("meta"))]:
         with pytest.raises(ValueError):
@@ -75,4 +94,7 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
         flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
     with pytest.raises(ValueError):
         flash_attention(q, k, k.to("meta"))
-    assert (ltrf_matmul.launches, flash_attention.launches) == before
+    for args in [[t.to("meta") for t in ssd_in], [*ssd_in[:4], ssd_in[4].to("meta")]]:
+        with pytest.raises(ValueError):
+            ssd_scan(*args, chunk=8)
+    assert (ltrf_matmul.launches, flash_attention.launches, ssd_scan.launches) == before

@@ -37,8 +37,10 @@ def _submit_both(engines, prompts, max_new):
             eng.submit(p, max_new_tokens=m)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-0.6b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-0.6b", "mamba2-1.3b", "zamba2-1.2b"])
 def test_greedy_tokens_identical(arch):
+    # 7 requests on 4 slots: slots are reused, and (as in the reference) a
+    # slot's SSM state is not reset when a new request takes it
     je, te = _engines(arch, dict(max_len=32, active_slots=4, total_pages=16))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 256, rng.integers(1, 8)).tolist() for _ in range(7)]

@@ -1,0 +1,151 @@
+"""The port's ssd_scan (plain path on the CPU) against the JAX package's Pallas
+kernel (interpret mode) and ssd_ref, on the cases of tests/test_kernels.py.
+
+Both sides compute the same fp32 math in another summation order, so fp32
+cases use the _tol row (rtol 2e-4 / atol 1e-4) and bf16 cases the bf16 row;
+the long-horizon decay case keeps its own rtol 1e-4 / atol 1e-5.
+"""
+import numpy as np
+import pytest
+from hypothesis import given, settings, strategies as st
+
+torch = pytest.importorskip("torch")
+
+from test_torch_parity import assert_close, randn, to_jax, to_torch  # noqa: E402
+
+from repro.kernels.ssd_scan.kernel import ssd_chunk_kernel as jax_chunk  # noqa: E402
+from repro.kernels.ssd_scan.ops import ssd_scan as jax_scan  # noqa: E402
+from repro.kernels.ssd_scan.ref import ssd_ref as jax_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_ref, ssd_scan  # noqa: E402
+
+FP32 = dict(rtol=2e-4, atol=1e-4)
+
+
+def _softplus(a):
+    return np.log1p(np.exp(a)).astype(np.float32)
+
+
+def _inputs(B, S, H, P, N, seed=0, a_hi=1.5):
+    """x, dt, A, Bm, Cm as float32 numpy, at the scales of test_kernels.py."""
+    return (randn(seed, (B, S, H, P), 0.5), _softplus(randn(seed + 1, (B, S, H))),
+            (-np.exp(np.linspace(0.0, a_hi, H))).astype(np.float32),
+            randn(seed + 2, (B, S, N), 0.3), randn(seed + 3, (B, S, N), 0.3))
+
+
+def _both(arrays, dtype="float32"):
+    """The inputs for JAX and for the port; A stays fp32, as the model feeds it."""
+    j = [to_jax(a, "float32" if i == 2 else dtype) for i, a in enumerate(arrays)]
+    t = [to_torch(a, "float32" if i == 2 else dtype) for i, a in enumerate(arrays)]
+    return j, t
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 96])
+@pytest.mark.parametrize("S", [96, 160])
+def test_chunk_sizes_match_pallas_and_ref(S, chunk):
+    j, t = _both(_inputs(2, S, 3, 8, 16))
+    y, fin = ssd_scan(*t, chunk=chunk)
+    assert y.shape == (2, S, 3, 8) and y.dtype == torch.float32
+    assert fin.shape == (2, 3, 8, 16) and fin.dtype == torch.float32
+    jy, jfin = jax_scan(*j, chunk=chunk, interpret=True)
+    assert_close(y, jy, **FP32)
+    assert_close(fin, jfin, **FP32)
+    ry, rfin = ssd_ref(*t)
+    jry, jrfin = jax_ref(*j)
+    assert_close(ry, jry, **FP32)
+    assert_close(rfin, jrfin, **FP32)
+    # the chunked scan against the recurrence, at test_kernels.py's 3e-3
+    assert_close(y, ry, rtol=3e-3, atol=3e-3)
+    assert_close(fin, rfin, rtol=3e-3, atol=3e-3)
+
+
+def test_bf16_inputs():
+    j, t = _both(_inputs(1, 64, 2, 8, 8, a_hi=1.0), "bfloat16")
+    y, fin = ssd_scan(*t, chunk=32)
+    assert y.dtype == torch.bfloat16 and fin.dtype == torch.float32
+    jy, jfin = jax_scan(*j, chunk=32, interpret=True)
+    assert_close(y, jy, "bfloat16")
+    assert_close(fin, jfin, "bfloat16")
+    ry, _ = ssd_ref(*t)
+    assert ry.dtype == torch.bfloat16
+    assert_close(ry, jax_ref(*j)[0], "bfloat16")
+
+
+@settings(max_examples=6, deadline=None)
+@given(seed=st.integers(0, 30), chunk=st.sampled_from([8, 16, 32]))
+def test_property_matches_pallas_and_recurrence(seed, chunk):
+    B, S, H, P, N = 1, 64, 2, 4, 8
+    rng = np.random.default_rng(seed)
+    arrays = (randn(seed, (B, S, H, P), 0.5), _softplus(randn(seed + 1, (B, S, H))),
+              (-np.exp(rng.uniform(size=H))).astype(np.float32),
+              randn(seed + 3, (B, S, N), 0.3), randn(seed + 4, (B, S, N), 0.3))
+    j, t = _both(arrays)
+    y, fin = ssd_scan(*t, chunk=chunk)
+    jy, jfin = jax_scan(*j, chunk=chunk, interpret=True)
+    assert_close(y, jy, **FP32)
+    assert_close(fin, jfin, **FP32)
+    ry, rfin = ssd_ref(*t)
+    assert_close(y, ry, rtol=5e-3, atol=5e-3)
+    assert_close(fin, rfin, rtol=5e-3, atol=5e-3)
+
+
+def test_long_horizon_decay_matches_recurrence():
+    """C == B == const and positive x: the scan equals the recurrence over a
+    long horizon (test_kernels.py's stability case, rtol 1e-4)."""
+    B, S, H, P, N = 1, 128, 1, 4, 4
+    arrays = (np.full((B, S, H, P), 0.1, np.float32), np.full((B, S, H), 0.5, np.float32),
+              np.array([-1.0], np.float32), np.full((B, S, N), 0.2, np.float32),
+              np.full((B, S, N), 0.2, np.float32))
+    j, t = _both(arrays)
+    y, _ = ssd_scan(*t, chunk=32)
+    assert_close(y, jax_ref(*j)[0], rtol=1e-4, atol=1e-5)
+    assert_close(y, ssd_ref(*t)[0], rtol=1e-4, atol=1e-5)
+    assert_close(y, jax_scan(*j, chunk=32, interpret=True)[0], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 3, 8, 16, 16), (1, 192, 2, 16, 16, 96),
+                                   (2, 128, 4, 8, 12, 64)],
+                         ids=["q16", "q96", "q64"])
+def test_chunk_ref_outputs_match_pallas_kernel(shape):
+    B, S, H, P, N, Q = shape
+    j, t = _both(_inputs(B, S, H, P, N, seed=5))
+    got = ssd_chunk_ref(*t, chunk=Q)
+    want = jax_chunk(*j, chunk=Q, interpret=True)
+    nc = S // Q
+    shapes = [(B, nc, H, Q, P), (B, nc, H, P, N), (B, nc, H, Q), (B, nc, H, 1)]
+    for g, w, shp in zip(got, want, shapes):
+        assert tuple(g.shape) == shp == w.shape and g.dtype == torch.float32
+        assert_close(g, w, **FP32)
+
+
+def test_chunk_ref_pads_a_ragged_sequence_with_zeros():
+    """S not a multiple of the chunk: the outputs are the Pallas kernel's on
+    the zero-padded inputs (what the TPU wrapper feeds it)."""
+    B, S, H, P, N, Q = 2, 100, 3, 8, 16, 32
+    arrays = _inputs(B, S, H, P, N, seed=7)
+    _, t = _both(arrays)
+    got = ssd_chunk_ref(*t, chunk=Q)
+    pad = 128 - S
+    padded = [np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2)) if i != 2 else a
+              for i, a in enumerate(arrays)]
+    want = jax_chunk(*[to_jax(a) for a in padded], chunk=Q, interpret=True)
+    for g, w in zip(got, want):
+        assert_close(g, w, **FP32)
+    # and the wrapper's plain path is that function
+    for g, w in zip(ssd_chunk(*t, chunk=Q), got):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_upper_triangle_and_padding_contribute_nothing():
+    """The lower-triangle mask: y_intra of row 0 of a chunk depends on row 0
+    only, and rows past S add nothing to the chunk's state."""
+    x, dt, A, Bm, Cm = (to_torch(a) for a in _inputs(1, 40, 2, 4, 8, seed=11))
+    y, state, _, _ = ssd_chunk_ref(x, dt, A, Bm, Cm, chunk=16)
+    x2 = x.clone()
+    x2[:, 1:16] += 1.0                       # rows after row 0 of chunk 0
+    y2, _, _, _ = ssd_chunk_ref(x2, dt, A, Bm, Cm, chunk=16)
+    torch.testing.assert_close(y2[:, 0, :, 0], y[:, 0, :, 0], rtol=0, atol=0)
+    assert not torch.allclose(y2[:, 0, :, 1:], y[:, 0, :, 1:])
+    # the last chunk (rows 32..39, then 8 padded rows): its state equals the
+    # state of the same rows run as a chunk of their own
+    _, st8, _, _ = ssd_chunk_ref(x[:, 32:], dt[:, 32:], A, Bm[:, 32:], Cm[:, 32:], chunk=8)
+    torch.testing.assert_close(state[:, 2], st8[:, 0], rtol=1e-6, atol=1e-7)
