@@ -10,16 +10,18 @@ exits non-zero; no phase's error is caught):
 2. build   -- the three Hopper kernels from ``src/repro_torch/csrc`` (nvcc, in
    parallel) into ``build/kernels/``.
 3. kernel_checks -- each kernel against its plain PyTorch version on the
-   card, at the main paths' shapes: error, the per-CTA plan, and the median
-   time of the kernel, the plain version and one PyTorch library call for
-   the same function where there is one (``library_ms``; the port never calls
-   it), beside its bound.  Planted faults show what the flash and ssd limits
+   card, at the main paths' shapes (flash at tinyllama-1.1b's and
+   zamba2-1.2b's): error, the per-CTA plan, and the median time of the
+   kernel, the plain version and one PyTorch library call for the same
+   function where there is one (``library_ms``; the port never calls it),
+   beside its bound.  Planted faults show what the flash and ssd limits
    catch.
 4. prefill -- full-width tinyllama-1.1b ``loss_fn`` on B=2 x S=1024 tokens
    from the seed, on the kernel path; logits and loss held against the plain
    path on the card, and each layer's ``flash_attention`` call against its
    plain version at that layer's inputs.  Planted attention faults show what
-   each limit catches.
+   each limit catches.  Every prefill phase checks that each of its bf16
+   M=2048 matmuls and flash calls took the kernels' ``wgmma`` route.
 5. serve   -- full-width tinyllama ``serve()`` (8 active slots, max_len 256,
    16 requests, up to 12 new tokens each) on the kernel path; all requests
    complete, no page leaks; the first 4 decode steps' logits held against
@@ -41,7 +43,8 @@ exits non-zero; no phase's error is caught):
    plain version, and 4 decode steps (6 per-call-site KV caches) held against
    the plain path.
 10. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
-    7, 8 and 9, each counted from 0), error, times and bounds per kernel.
+    7, 8 and 9, each counted from 0) in all and per route, error, times and
+    bounds per kernel.
 11. the last line: ``{"ok": true, "device": {...}}``.
 
 Weights are random (seeded); the port imports neither jax nor the JAX package.
@@ -57,6 +60,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -90,8 +94,14 @@ HYBRID_ARCH = "zamba2-1.2b"
 KERNELS = ("ltrf_matmul", "flash_attention", "ssd_scan")
 # tolerances.  ltrf_matmul vs its plain version: the _tol table of the kernel
 # tests (its outputs here are about N(0, 1)).  flash_attention vs its plain
-# version: both compute in fp32 and round once to bf16, so they differ by at
-# most one bf16 ulp (< 8e-3 of the value); its outputs average hundreds of
+# version: the bf16 kernel computes S = Q K^T in fp32 (products of bf16
+# values are exact, so only the sum order differs), rounds P to bf16 hi + lo
+# parts (~16 bits; a single bf16 P, as FA2/FA3 round it, moves single outputs
+# by up to ~2e-3 relative: emulated on the CPU at these shapes it reads a
+# relative L2 of 2e-3 but up to 2x the elementwise limit) and accumulates
+# P V in fp32; the plain version computes in fp32.  Both round once to bf16,
+# so they differ by about one bf16 ulp (< 8e-3 of the value) where the two
+# fp32 values straddle a rounding point.  Its outputs average hundreds of
 # keys and are ~0.05 in size, so the matmul's atol of 8e-2 would pass a
 # dropped KV tile.  The flash limits are elementwise (rtol, atol) and a
 # relative L2 over the whole output; a planted fault (one KV tile zeroed) must
@@ -305,19 +315,39 @@ def phase_device() -> dict:
             "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
 
 
+def ptxas_summary(log: str) -> dict:
+    """``-Xptxas -v`` per kernel instantiation: {"name<int template args>":
+    "Used N registers, S bytes spill stores, L bytes spill loads"}."""
+    out, key, spills = {}, None, ""
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '\w*?_cu_[0-9a-f]{8}(\d+)(\w+)'", ln)
+        if entry:
+            n = int(entry.group(1))
+            name, rest = entry.group(2)[:n], entry.group(2)[n:]
+            key = f"{name}<{','.join(re.findall(r'Li(\d+)', rest.split('Ev')[0]))}>"
+        elif key and "spill stores" in ln:
+            spills = ln.split(",", 1)[1].strip()
+        elif key and "Used" in ln and "registers" in ln:
+            out[key] = ln.split(":", 1)[1].split(",")[0].strip() + ", " + spills
+    return out
+
+
 def phase_build() -> dict:
     logs = _build.build(KERNELS)
     summary = {}
     for name in KERNELS:
         log = logs.get(name) or (_build.BUILD_DIR / f"{name}.log").read_text()
-        summary[name] = [ln.strip() for ln in log.splitlines()
-                         if "registers" in ln or "spill" in ln.lower()][:40]
+        summary[name] = ptxas_summary(log)
     return {"ptxas": summary}
 
 
 def check_matmuls(cfgs, dev, gen) -> list:
     shapes = sorted({kn for cfg in cfgs for kn, _ in slice_matmuls(cfg)})
     cases = [(M, K, N, torch.bfloat16) for M in (8, 2048) for K, N in shapes]
+    # a probe, on no main path: tinyllama's head widened by 8 columns, so its
+    # weight rows are an odd multiple of 16 bytes long, as mamba2-1.3b's
+    # 50280-wide head's are (against 2048 x 32000, whose rows are 128-aligned)
+    cases += [(2048, 2048, 32008, torch.bfloat16)]
     cases += [(300, 500, 200, torch.float32), (64, 1024, 96, torch.float32)]
     res = []
     for M, K, N, dt in cases:
@@ -345,11 +375,12 @@ def check_matmuls(cfgs, dev, gen) -> list:
     return res
 
 
-def check_flash(cfg, dev, gen) -> list:
+def check_flash(cfg, hybrid, dev, gen) -> list:
     res = []
     for B, H, KV, S, d in [(2, cfg.n_heads, cfg.n_kv_heads, 1024, cfg.hd),
                            (2, cfg.n_heads, cfg.n_kv_heads, 1000, cfg.hd),
-                           (2, 8, 1, 1024, cfg.hd)]:
+                           (2, 8, 1, 1024, cfg.hd),
+                           (2, hybrid.n_heads, hybrid.n_kv_heads, 1024, hybrid.hd)]:
         dt = torch.bfloat16
         q = torch.randn(B, H, S, d, device=dev, generator=gen).to(dt)
         k = torch.randn(B, KV, S, d, device=dev, generator=gen).to(dt)
@@ -419,19 +450,25 @@ def check_ssd(dev, gen) -> list:
 def phase_kernel_checks(cfgs, dev) -> dict:
     gen = torch.Generator(dev).manual_seed(123)
     return {"ltrf_matmul": check_matmuls(cfgs, dev, gen),
-            "flash_attention": check_flash(cfgs[0], dev, gen),
+            "flash_attention": check_flash(cfgs[0], cfgs[2], dev, gen),
             "ssd_scan": check_ssd(dev, gen)}
 
 
 def reset_counts() -> None:
-    ltrf_matmul.launches = 0
-    flash_attention.launches = 0
-    ssd_scan.launches = 0
+    for kern in (ltrf_matmul, flash_attention, ssd_scan):
+        kern.launches = 0
+    for kern in (ltrf_matmul, flash_attention):
+        kern.launches_by_route = dict.fromkeys(kern.launches_by_route, 0)
 
 
 def read_counts() -> dict:
     return {"ltrf_matmul": ltrf_matmul.launches, "flash_attention": flash_attention.launches,
             "ssd_scan": ssd_scan.launches}
+
+
+def read_routes() -> dict:
+    return {"ltrf_matmul": dict(ltrf_matmul.launches_by_route),
+            "flash_attention": dict(flash_attention.launches_by_route)}
 
 
 plain_attention = layers.causal_attention
@@ -476,19 +513,23 @@ def checking_ssd():
         ssd_ops.ssd_chunk = ssd_chunk
 
 
-def main_path_prefill(cfg, params, batch) -> tuple[torch.Tensor, dict, float]:
-    """One kernel-path ``loss_fn`` with the counts set to 0 just before it."""
+def main_path_prefill(cfg, params, batch) -> tuple[torch.Tensor, dict, dict, float]:
+    """One kernel-path ``loss_fn`` with the counts set to 0 just before it;
+    every bf16 matmul (M = 2048) and flash call must take the wgmma route."""
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     loss, _ = loss_fn(params, batch, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts, routes = read_counts(), read_routes()
+    want = forward_launches(cfg)
     check(bool(torch.isfinite(loss)), f"{cfg.name} prefill loss not finite: {loss}")
-    check(counts == forward_launches(cfg),
-          f"{cfg.name} prefill launches {counts}, want {forward_launches(cfg)}")
-    return loss, counts, wall
+    check(counts == want, f"{cfg.name} prefill launches {counts}, want {want}")
+    for name in routes:
+        check(routes[name]["wgmma"] == want[name],
+              f"{cfg.name} prefill {name} routes {routes[name]}, want {want[name]} on wgmma")
+    return loss, counts, routes, wall
 
 
 def prefill_batch(cfg, dev, seed) -> dict:
@@ -497,14 +538,22 @@ def prefill_batch(cfg, dev, seed) -> dict:
     return {"tokens": toks, "labels": toks}
 
 
-def loss_fn_ms(cfg, params, batch) -> dict:
+def loss_fn_ms(cfg, params, batch, reps: int = 5) -> dict:
+    """Host-clock ms of one ``loss_fn`` (ending in a synchronise) on each
+    path, the median of ``reps`` calls and their spread (min, max): single
+    calls vary by up to 1.5x between calls of the same code, as the host's
+    share of a prefill does."""
     out = {}
     for name, kern in (("kernel", True), ("plain", False)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss_fn(params, batch, cfg, kernels=kern)
-        torch.cuda.synchronize()
-        out[f"{name}_loss_fn_ms"] = 1e3 * (time.perf_counter() - t0)
+        samples = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss_fn(params, batch, cfg, kernels=kern)
+            torch.cuda.synchronize()
+            samples.append(1e3 * (time.perf_counter() - t0))
+        out[f"{name}_loss_fn_ms"] = statistics.median(samples)
+        out[f"{name}_loss_fn_ms_range"] = [min(samples), max(samples)]
     return out
 
 
@@ -538,7 +587,7 @@ def ssd_per_layer(recs, first, n_expected) -> dict:
 
 def phase_prefill(cfg, params, dev, seed) -> dict:
     batch = prefill_batch(cfg, dev, seed)
-    loss, counts, wall = main_path_prefill(cfg, params, batch)
+    loss, counts, routes, wall = main_path_prefill(cfg, params, batch)
     # held against the plain path (these launches are not counted); the kernel
     # path's run also records each layer's flash_attention call
     with recording_flash() as calls:
@@ -549,7 +598,8 @@ def phase_prefill(cfg, params, dev, seed) -> dict:
            "loss_rel_diff": abs(float(loss) - float(loss_p)) / abs(float(loss_p)),
            "logits_rel_l2": rel_l2(logits_k, logits_p),
            "logits_max_abs_err": float((logits_k.float() - logits_p.float()).abs().max()),
-           "logits_shape": list(logits_k.shape), "first_call_s": wall, "launches": counts}
+           "logits_shape": list(logits_k.shape), "first_call_s": wall, "launches": counts,
+           "launches_by_route": routes}
     del logits_k
     # flash_attention at each layer's own inputs, against its plain version
     out["flash_per_layer"] = flash_per_layer(calls, cfg.n_layers)
@@ -639,7 +689,7 @@ def ssm_prefill(cfg, params, dev, seed, faults: bool) -> dict:
     path in the model's dtype and in fp32, with each layer's flash and ssd
     calls held against their plain versions."""
     batch = prefill_batch(cfg, dev, seed)
-    loss, counts, wall = main_path_prefill(cfg, params, batch)
+    loss, counts, routes, wall = main_path_prefill(cfg, params, batch)
     with recording_flash() as calls, checking_ssd() as (ssd_recs, ssd_first):
         logits_k, _ = logits_fn(params, batch, cfg)
     logits_p, _ = logits_fn(params, batch, cfg, kernels=False)
@@ -649,7 +699,8 @@ def ssm_prefill(cfg, params, dev, seed, faults: bool) -> dict:
            "logits_rel_l2": rel_l2(logits_k, logits_p),
            "logits_row_rel_l2": row_rel_l2(logits_k, logits_p),
            "logits_max_abs_err": float((logits_k.float() - logits_p.float()).abs().max()),
-           "logits_shape": list(logits_k.shape), "first_call_s": wall, "launches": counts}
+           "logits_shape": list(logits_k.shape), "first_call_s": wall, "launches": counts,
+           "launches_by_route": routes}
     del logits_k
     out["ssd_per_layer"] = ssd_per_layer(ssd_recs, ssd_first, cfg.n_layers)
     del ssd_recs, ssd_first
@@ -726,13 +777,15 @@ def main_path_serve(arch, cfg, dev, seed) -> dict:
     reset_counts()
     stats = serve(arch, smoke=False, n_requests=16, max_new=12, seed=seed,
                   active_slots=8, total_pages=64, max_len=256, device=dev)
-    counts = read_counts()                        # the main path's launches
+    counts, routes = read_counts(), read_routes()  # the main path's launches
     check(stats["completed"] == 16, f"{arch} serve completed {stats['completed']}/16")
     check(stats["pages_leaked"] == 0, f"{arch} serve leaked {stats['pages_leaked']} pages")
     per_step = forward_launches(cfg)["ltrf_matmul"]
     check(counts == {"ltrf_matmul": stats["steps"] * per_step, "flash_attention": 0,
                      "ssd_scan": 0}, f"{arch} serve launches {counts} over {stats['steps']} steps")
-    return {**stats, "launches": counts}
+    check(routes["ltrf_matmul"]["decode"] == counts["ltrf_matmul"],
+          f"{arch} serve matmul routes {routes['ltrf_matmul']}: every step is M = 8")
+    return {**stats, "launches": counts, "launches_by_route": routes}
 
 
 def phase_serve(cfg, params, dev, seed) -> dict:
@@ -821,9 +874,12 @@ def phase_prefill_zamba2(cfg, params, dev, seed) -> dict:
     return out
 
 
-def kernels_line(cfgs, checks, paths) -> dict:
-    """``paths``: each main path's launch counts, by phase."""
+def kernels_line(cfgs, checks, paths, routes) -> dict:
+    """``paths``: each main path's launch counts, by phase; ``routes``: the
+    same per route, for the kernels that have routes."""
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
+    by_route = {n: {r: sum(p[n][r] for p in routes.values()) for r in rs}
+                for n, rs in next(iter(routes.values())).items()}
     mm = {(r["M"], r["K"], r["N"]): r for r in checks["ltrf_matmul"] if r["dtype"] == "bfloat16"}
 
     def mix(cfg, M):
@@ -839,13 +895,13 @@ def kernels_line(cfgs, checks, paths) -> dict:
     mixes = {cfg.name: {"decode_m8": mix(cfg, 8), "prefill_m2048": mix(cfg, 2048)}
              for cfg in cfgs}
     tiny = mixes[ARCH]
-    fa = checks["flash_attention"][0]
+    fa, fa_hybrid = checks["flash_attention"][0], checks["flash_attention"][-1]
     ssd = checks["ssd_scan"][0]
     return {"kernels": [
         {"name": "ltrf_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/ltrf_matmul.cu",
          "replaces": "src/repro/kernels/ltrf_matmul/kernel.py:48",
-         "launches": launches["ltrf_matmul"],
+         "launches": launches["ltrf_matmul"], "launches_by_route": by_route["ltrf_matmul"],
          "max_abs_err": max(r["max_abs_err"] for r in mm.values()),
          "ms": tiny["decode_m8"]["ms"], "plain_ms": tiny["decode_m8"]["plain_ms"],
          "bound_ms": tiny["decode_m8"]["bound_ms"], "bound_by": tiny["decode_m8"]["bound_by"],
@@ -862,12 +918,18 @@ def kernels_line(cfgs, checks, paths) -> dict:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:64",
          "launches": launches["flash_attention"],
+         "launches_by_route": by_route["flash_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in checks["flash_attention"]),
          "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
          "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
          "unit": (f"one launch at B={fa['B']}, H={fa['H']}, KV={fa['KV']}, S={fa['S']}, "
                   f"d={fa['d']}, bf16, causal (22 per {ARCH} prefill forward, "
                   f"6 per {HYBRID_ARCH})"),
+         HYBRID_ARCH: {"unit": (f"one launch at B={fa_hybrid['B']}, H={fa_hybrid['H']}, "
+                                f"KV={fa_hybrid['KV']}, S={fa_hybrid['S']}, d={fa_hybrid['d']}, "
+                                "bf16, causal"),
+                       **{k: fa_hybrid[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "library_ms", "max_abs_err")}},
          "launches_by_path": {k: p["flash_attention"] for k, p in paths.items()}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
@@ -907,7 +969,7 @@ def main() -> int:
     run("device", phase_device)
     run("build", phase_build)
     run("kernel_checks", phase_kernel_checks, cfgs, dev)
-    paths = {}
+    paths, routes = {}, {}
     for cfg, phases in [
             (cfgs[0], [("prefill", phase_prefill), ("serve", phase_serve)]),
             (cfgs[1], [("prefill_mamba2", phase_prefill_mamba2),
@@ -917,11 +979,12 @@ def main() -> int:
         for name, fn in phases:
             run(name, fn, cfg, params, dev, args.seed)
             paths[name] = results[name]["launches"]
+            routes[name] = results[name]["launches_by_route"]
         if cfg.name == ARCH:
             run("profile", phase_profile, cfg, params, dev)
         del params
         free_memory()
-    line = kernels_line(cfgs, results["kernel_checks"], paths)
+    line = kernels_line(cfgs, results["kernel_checks"], paths, routes)
     for k in line["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
     out_dir = ROOT / "chiprun_out"

@@ -4,36 +4,55 @@
 // Pallas TPU kernel, body _ltrf_matmul_kernel).  Same function: fp32
 // accumulation over K, one rounding to the output type at the end.
 //
-// What bounds it on an H100: in the serving decode step (M = 8 rows) every
-// weight byte is used by 8 rows only, so the product is bound by the bytes
-// streamed from HBM (3.35 TB/s): about 2 flops per weight byte, far below the
-// ~295 flops/byte at which the bf16 tensor cores become the limit.  In a
-// prefill (M = 2048) the same product is bound by tensor-core operations.
+// What bounds it on an H100: in a prefill (M = 2048) the product is bound by
+// tensor-core operations (989 TFLOP/s bf16): ~2 * K flops per weight byte
+// against the ~295 flops/byte at which the tensor cores, not HBM, become the
+// limit.  In the serving decode step (M = 8 rows) each weight byte is used by
+// 8 rows only, so the product is bound by the bytes streamed from HBM
+// (3.35 TB/s).
 //
-// What the design does about it: the weight matrix in HBM plays the paper's
-// large, slow main register file and a ring of shared-memory stages plays the
-// register-file cache.  One CTA owns one (BM x BN) output tile and streams its
-// column of (BK x BN) weight tiles through `stages` ring slots filled with
-// cp.async, `stages - 1` tiles ahead of the compute -- the paper's "prefetch
-// the next interval's working set while other warps compute".  The ring depth
-// is passed in at run time: the wrapper picks it (the stages that fit in half
-// the shared memory) and launches with the num_slots of the per-CTA
-// IntervalPlan built at that depth (repro_torch/core/plan.py).  For decode one M-tile covers all rows (BM >= M), so
-// each weight byte is read from HBM once per step.  bf16 inputs go through
-// mma.sync m16n8k16 with fp32 accumulators; fp32 inputs go through plain FFMA
-// in the same register layout (not TF32, which misses fp32 tolerances).
-// Ragged M/K/N edges are masked here with zero-filling copies, not padded on
-// the host; rows of x and w must be 16-byte aligned (the wrapper checks).
-// Simple and correct first: no TMA, wgmma or warp specialisation yet.
+// The paper's mapping: the weight matrix in HBM is the large, slow main
+// register file; a ring of shared-memory stages is the register-file cache;
+// the next interval's weight tiles are in flight while the consumers compute
+// on the current ones.  One CTA owns one output tile and streams its column
+// of weight tiles through the ring, whose depth is the num_slots of the
+// validated per-CTA IntervalPlan the wrapper builds (repro_torch/core/plan.py).
+// Three routes, chosen by the wrapper from dtype and M:
+//
+// wgmma (bf16, M > 64; prefill).  A 128 x BN tile (BN = 128 or 256) over BK =
+// 64 stages.  A producer warpgroup (registers handed to the consumers with
+// setmaxnreg; one thread issues) keeps TMA loads of the x tile (K-major) and
+// of the weight tile (N-major, as w lies in HBM: no transpose or copy) in
+// flight, one full and one empty mbarrier per stage.  Two consumer
+// warpgroups of 64 rows each run wgmma m64nBNk16 from shared memory (B with
+// the transpose bit) into fp32 registers, keeping one k-stage of wgmma in
+// flight.  The grid is persistent (one CTA an SM walks the output tiles), so
+// the ring fills the next tile while the consumers finish this one; they
+// round the tile into shared memory and store it with TMA, which leaves them
+// free for the next tile at once (stores straight from registers, 4 bytes a
+// thread and 8 rows a warp instruction, left the tensor cores idle for a
+// large part of each tile).  TMA boxes
+// are 128-byte swizzled (no row padding), loads are zero-filled and stores
+// clipped past M, K and N, so no shape is padded on the host.  Weight rows
+// whose length in bytes is an odd multiple of 16 load slower through TMA.
+// Measured share of the bound (chip_smoke.py on an H100 80GB HBM3 at 700 W):
+// tinyllama-1.1b's prefill mix (155 launches at M = 2048) takes 6.47 ms
+// against a 4.28 ms bound, 66 % (cuBLAS: 6.25 ms); mamba2-1.3b's 65 % and
+// zamba2-1.2b's 74 %.
+//
+// decode (bf16, M <= 64) and fp32 (any M): a cp.async ring of padded tiles
+// feeding mma.sync m16n8k16 (bf16) or FFMA in the same register layout (fp32:
+// never TF32, which misses fp32 tolerances).  For decode one M-tile covers
+// all rows, so each weight byte is read from HBM once per step; narrow
+// 32-column tiles give more CTAs to stream weights.  Both are bound far from
+// the card's limits; PERF.md has their times.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kSmemPerBlock = 232448;  // H100: dynamic shared memory per block
-constexpr int kMaxDevices = 64;
+using namespace hopper;
+
 constexpr int kMaxStages = 8;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -59,7 +78,7 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
@@ -169,8 +188,8 @@ ltrf_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const T* q = wt + (kk + 2 * t) * LDW + wn0 + j * 8 + g;
-          b[j][0] = pack_bf16(q[0], q[LDW]);
-          b[j][1] = pack_bf16(q[8 * LDW], q[9 * LDW]);
+          b[j][0] = pack2(q[0], q[LDW]);
+          b[j][1] = pack2(q[8 * LDW], q[9 * LDW]);
         }
 #pragma unroll
         for (int i = 0; i < MT; ++i)
@@ -218,20 +237,6 @@ ltrf_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
       }
 }
 
-// Opt the kernel in to the largest dynamic shared memory a block may use, once
-// per device; launches then ask for what they need.  (Setting it once keeps the
-// launch path free of attribute calls, e.g. while a CUDA graph captures it.)
-template <auto Kernel>
-cudaError_t allow_smem() {
-  static bool done[kMaxDevices] = {};  // one flag set per kernel instantiation
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
-  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemPerBlock);
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
-  return err;
-}
-
 template <typename T, int BM, int BN, int BK, int WM, int WN>
 cudaError_t launch(const void* x, const void* w, void* out, int M, int K, int N,
                    int stages, cudaStream_t stream) {
@@ -258,6 +263,179 @@ cudaError_t launch_decode(const void* x, const void* w, void* out, int M, int K,
   }
 }
 
+// ---------------------------------------------------------------- wgmma route
+
+constexpr int kWgBM = 128;                 // two consumer warpgroups of 64 rows
+constexpr int kWgBK = 64;                  // one 128-byte swizzled row of bf16
+constexpr int kWgThreads = 384;            // producer warpgroup + 2 consumers
+constexpr int kXTileBytes = kWgBM * kWgBK * 2;
+constexpr int kWBoxBytes = kWgBK * 64 * 2;  // one 64-column box of the weight tile
+constexpr int kOutBoxBytes = 64 * 64 * 2;   // one 64 x 64 box of the output
+constexpr int kStagingBytes = 2 * kOutBoxBytes;  // per consumer: 64 rows x 128 columns
+
+template <int BN>
+__host__ __device__ constexpr int wgmma_stage_bytes() { return kXTileBytes + (BN / 64) * kWBoxBytes; }
+
+template <int BN>
+size_t wgmma_smem_bytes(int stages) {
+  return 1024 + (size_t)stages * (wgmma_stage_bytes<BN>() + 2 * sizeof(uint64_t)) +
+         2 * kStagingBytes;
+}
+
+// Stage s of the ring: the x tile (128 rows x 128 B, K-major), then BN / 64
+// weight boxes (64 K rows x 128 B of N each, N-major).  Each consumer's
+// output staging (two 64 x 64 boxes, 128-byte swizzled) and the barriers
+// follow the ring.  The grid is persistent: CTA b takes output tiles b,
+// b + gridDim.x, ..., and the ring runs on across them, so the producer
+// fills the next tile's stages while the consumers store the last one, and
+// the consumers go on while TMA writes their staged output.  Tiles are
+// numbered M-tile fastest, so the CTAs working at one time share their
+// weight tiles and each is read from HBM about once.
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+ltrf_matmul_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                  const __grid_constant__ CUtensorMap tout, int M, int K, int N, int stages) {
+  constexpr int kStage = wgmma_stage_bytes<BN>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* staging = smem + (size_t)stages * kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * kStagingBytes);
+  uint64_t* empty = full + stages;
+
+  const int wg = threadIdx.x / 128;
+  const int m_tiles = (M + kWgBM - 1) / kWgBM;
+  const int n_tiles = m_tiles * ((N + BN - 1) / BN);
+  const int n_k = (K + kWgBK - 1) / kWgBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);            // one arrival per consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: the it-th k-stage of this CTA goes to slot it % stages once
+    // both consumers have released that slot's previous stage
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = (tile % m_tiles) * kWgBM;
+        const int n0 = (tile / m_tiles) * BN;
+        for (int kt = 0; kt < n_k; ++kt, ++it) {
+          const int s = it % stages;
+          if (it >= stages) mbar_wait(&empty[s], ((it / stages) + 1) & 1);
+          unsigned char* st = smem + (size_t)s * kStage;
+          mbar_expect_tx(&full[s], kStage);
+          tma_load_2d(st, &tx, &full[s], kt * kWgBK, m0);
+#pragma unroll
+          for (int b = 0; b < BN / 64; ++b)
+            tma_load_2d(st + kXTileBytes + b * kWBoxBytes, &tw, &full[s], n0 + b * 64,
+                        kt * kWgBK);
+        }
+      }
+    }
+  } else {
+    regs_alloc<240>();
+    const int c = wg - 1;                  // this consumer's rows: 64 c .. 64 c + 63
+    const int wtid = threadIdx.x % 128;
+    unsigned char* stage_out = staging + c * kStagingBytes;
+    float acc[BN / 2];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = (tile % m_tiles) * kWgBM;
+      const int n0 = (tile / m_tiles) * BN;
+      for (int kt = 0; kt < n_k; ++kt, ++it) {
+        const int s = it % stages;
+        mbar_wait(&full[s], (it / stages) & 1);
+        const uint32_t xa = smem_u32(smem + (size_t)s * kStage) + c * 64 * 128;
+        const uint32_t wb = smem_u32(smem + (size_t)s * kStage + kXTileBytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgBK / 16; ++kk)   // the tile's first product overwrites
+          wgmma_ss<BN, 1>(acc, desc_kmajor(xa, kWgBM, 128, kk),
+                          desc_mnmajor(wb, kWgBK, 128, kk), kt > 0 || kk > 0);
+        wgmma_commit();
+        // keep this stage's products in flight; the previous stage's are
+        // done, so its slot goes back to the producer
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (kt > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(it - 1) % stages]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[(it - 1) % stages]);
+
+      // epilogue, 128 columns at a time: round into the staging boxes (as
+      // TMA swizzles them, so the writes miss no bank), then one thread
+      // stores them with TMA, which clips rows past M and columns past N
+      const int row = (wtid / 32) * 16 + (wtid % 32) / 4;   // + 8 for odd j / 2
+#pragma unroll
+      for (int half = 0; half < BN / 128; ++half) {
+        if (wtid == 0) bulk_wait_read<0>();                 // the last store has read it
+        named_barrier(1 + c, 128);
+#pragma unroll
+        for (int jj = 0; jj < 64; jj += 2) {
+          const int j = 64 * half + jj;
+          const int r = row + 8 * ((j / 2) % 2);
+          const int col = 8 * (jj / 4) + 2 * (wtid % 4);    // within the 128 columns
+          const uint32_t off = (col / 64) * kOutBoxBytes + swizzle(r * 128 + (col % 64) * 2, 128);
+          *reinterpret_cast<uint32_t*>(stage_out + off) = pack_bf16(acc[j], acc[j + 1]);
+        }
+        fence_proxy_async();
+        named_barrier(1 + c, 128);
+        if (wtid == 0) {
+          tma_store_2d(&tout, stage_out, n0 + 128 * half, m0 + 64 * c);
+          tma_store_2d(&tout, stage_out + kOutBoxBytes, n0 + 128 * half + 64, m0 + 64 * c);
+          bulk_commit();
+        }
+      }
+    }
+    if (wtid == 0) bulk_wait<0>();
+  }
+}
+
+// Streaming multiprocessors of the current device, read once per device.
+int num_sms() {
+  static int cached[kMaxDevices] = {};
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (dev < kMaxDevices && cached[dev]) return cached[dev];
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+    return 1;
+  if (dev < kMaxDevices) cached[dev] = n;
+  return n;
+}
+
+template <int BN>
+cudaError_t launch_wgmma(const void* x, const void* w, void* out, int M, int K, int N,
+                         int stages, cudaStream_t stream) {
+  CUtensorMap tx, tw, tout;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t x_box[2] = {kWgBK, kWgBM};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t w_box[2] = {64, kWgBK};
+  const cuuint64_t out_dims[2] = {(cuuint64_t)N, (cuuint64_t)M};
+  const cuuint32_t out_box[2] = {64, 64};
+  if (!make_tmap(&tx, x, 2, x_dims, x_strides, x_box, 128) ||
+      !make_tmap(&tw, w, 2, w_dims, w_strides, w_box, 128) ||
+      !make_tmap(&tout, out, 2, out_dims, w_strides, out_box, 128))
+    return cudaErrorInvalidValue;
+  const size_t smem = wgmma_smem_bytes<BN>(stages);
+  if (smem > (size_t)kSmemPerBlock) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem<ltrf_matmul_wgmma<BN>>();
+  if (err != cudaSuccess) return err;
+  const int tiles = ((M + kWgBM - 1) / kWgBM) * ((N + BN - 1) / BN);
+  ltrf_matmul_wgmma<BN><<<tiles < num_sms() ? tiles : num_sms(), kWgThreads, smem, stream>>>(
+      tx, tw, tout, M, K, N, stages);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  (bm, bk, bn) must be one of the tile
@@ -269,8 +447,10 @@ extern "C" int ltrf_matmul_launch(const void* x, const void* w, void* out, int M
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (bm == 128 && bk == 32 && bn == 128)
-      return launch<__nv_bfloat16, 128, 128, 32, 2, 4>(x, w, out, M, K, N, stages, s);
+    if (bm == kWgBM && bk == kWgBK && bn == 128)
+      return launch_wgmma<128>(x, w, out, M, K, N, stages, s);
+    if (bm == kWgBM && bk == kWgBK && bn == 256)
+      return launch_wgmma<256>(x, w, out, M, K, N, stages, s);
     if (bk == 128 && bn == 32)
       return launch_decode<__nv_bfloat16, 128>(x, w, out, M, K, N, bm, stages, s);
   } else if (dtype == 0) {

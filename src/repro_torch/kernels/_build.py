@@ -1,7 +1,8 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
-``build/kernels/<name>-<hash of the source>.so`` under the repository root,
+``build/kernels/<name>-<hash>.so`` under the repository root (the hash covers
+the source and every ``csrc/*.cuh`` header it includes),
 at first use (or all at once, in parallel, through ``build``).  Nothing here
 runs at import time: the CPU tests import every module and have no ``nvcc``.
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,9 +32,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+\.cuh)"', re.M)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, transitively."""
+    paths, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in paths:
+            continue
+        paths.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())
+                 if (CSRC / inc.decode()).exists()]
+    return paths
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names) -> dict[str, str]:

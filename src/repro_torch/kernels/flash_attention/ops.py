@@ -4,8 +4,10 @@
 when q, k and v lie on the CPU.  For CUDA tensors it checks them and launches
 ``csrc/flash_attention.cu`` on the current stream; anything the kernel does
 not take raises.  Unlike the TPU wrapper, S need not be a multiple of the
-block: the kernel masks the ragged edge.  ``flash_attention.launches`` counts
-the launches.
+block: the kernel masks the ragged edge.  The route follows from the dtype:
+``"wgmma"`` for bf16 (TMA ring feeding wgmma), ``"fp32"`` for float32 (CUDA
+cores).  ``flash_attention.launches`` counts the launches and
+``flash_attention.launches_by_route`` counts them per route.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from .ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
 
 
 def _library():
@@ -55,6 +58,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"or empty sequence")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
     out = torch.empty_like(q)
     launch = _library()
     with torch.cuda.device(q.device):
@@ -64,9 +69,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[ROUTES[q.dtype]] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES.values(), 0)
 
 __all__ = ["attention_ref", "flash_attention"]

@@ -7,8 +7,13 @@ and the ring depth with ``pick_blocks``, builds and validates the per-CTA
 ``csrc/ltrf_matmul.cu`` on the current stream; anything the kernel does not
 take raises.  The kernel reads only the plan's ``num_slots`` (which is
 ``pick_blocks``' depth); its intervals and slot colouring are not used yet, as
-the ring is filled round-robin.  ``ltrf_matmul.launches`` counts
-the launches.
+the ring is filled round-robin.
+
+The route follows from dtype and M alone (``route``): ``"wgmma"`` for bf16
+with M > 64 (prefill: TMA ring feeding wgmma), ``"decode"`` for bf16 with
+M <= 64 (cp.async ring, mma.sync) and ``"fp32"`` for float32 (cp.async ring,
+FFMA).  ``ltrf_matmul.launches`` counts the launches and
+``ltrf_matmul.launches_by_route`` counts them per route.
 """
 from __future__ import annotations
 
@@ -22,27 +27,65 @@ from .. import _build
 from .ref import matmul_ref
 
 SMEM_PER_CTA = 232_448   # H100: dynamic shared memory one block may use
+NUM_SMS = 132            # H100 SXM
 MAX_STAGES = 6
+# wgmma route: shared memory kept beside the ring -- the 1024-byte alignment of
+# the swizzled tiles, the consumers' output staging (2 x 64 x 128 bf16) and
+# the ring's full and empty mbarriers
+WGMMA_RESERVE = 34 * 1024
+ROUTES = ("wgmma", "decode", "fp32")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def stage_bytes(bm: int, bk: int, bn: int, dtype_bytes: int) -> int:
-    """Shared memory of one ring slot: the x tile and the weight tile, each
-    row padded by 16 bytes as the kernel lays them out."""
-    ch = 16 // dtype_bytes
+def route(M: int, dtype_bytes: int = 2) -> str:
+    """The kernel route for M rows of this dtype (see the module docstring)."""
+    if dtype_bytes == 4:
+        return "fp32"
+    return "decode" if M <= 64 else "wgmma"
+
+
+def stage_bytes(bm: int, bk: int, bn: int, dtype_bytes: int,
+                swizzled: bool = False) -> int:
+    """Shared memory of one ring slot: the x tile and the weight tile.  The
+    cp.async routes pad each row by 16 bytes; the wgmma route's TMA boxes
+    are 128-byte swizzled (``swizzled``) and unpadded."""
+    ch = 0 if swizzled else 16 // dtype_bytes
     return (bm * (bk + ch) + bk * (bn + ch)) * dtype_bytes
+
+
+def _wgmma_bn(M: int, N: int) -> int:
+    """128 or 256 output columns a CTA: the one with the fewer column-units of
+    work on the busiest SM, a 128-wide tile counted 15 % dearer (it moves more
+    shared-memory bytes per flop), so narrow N still spreads over the SMs."""
+    m_tiles = -(-M // 128)
+
+    def cost(bn):
+        waves = -(-(m_tiles * -(-N // bn)) // NUM_SMS)
+        return waves * bn * (1.0 if bn == 256 else 1.15)
+
+    return min((256, 128), key=cost)
 
 
 def pick_blocks(M: int, K: int, N: int,
                 dtype_bytes: int = 2) -> tuple[int, int, int, int]:
     """(bm, bk, bn, stages) for one CTA of the kernel.
 
+    wgmma (bf16, M > 64): 128 x 128 or 128 x 256 output tiles (``_wgmma_bn``)
+    fed 64 deep; the ring takes as many stages (up to MAX_STAGES) as fit in one
+    CTA's shared memory beside ``WGMMA_RESERVE``, one CTA an SM.
     Decode (M <= 64): one M-tile covers every row, so each weight byte is read
     from HBM once; narrow 32-column tiles give more CTAs to stream weights.
-    Otherwise 128 x 128 output tiles fed 32 deep.  The ring takes as many
-    stages (2..MAX_STAGES) as fit in half of ``SMEM_PER_CTA``, so two CTAs
-    can share an SM.
+    fp32 with M > 64: 128 x 128 output tiles fed 32 deep.  The cp.async
+    routes take as many stages (2..MAX_STAGES) as fit in half of
+    ``SMEM_PER_CTA``, so two CTAs can share an SM.
     """
+    kind = route(M, dtype_bytes)
+    if kind == "wgmma":
+        bm, bk, bn = 128, 64, _wgmma_bn(M, N)
+        per_stage = stage_bytes(bm, bk, bn, dtype_bytes, swizzled=True)
+        stages = min(MAX_STAGES, (SMEM_PER_CTA - WGMMA_RESERVE) // per_stage)
+        assert stages >= 2
+        return bm, bk, bn, stages
     if M <= 64:
         bm = 16 if M <= 16 else 32 if M <= 32 else 64
         bk, bn = (128 if dtype_bytes == 2 else 64), 32
@@ -67,8 +110,9 @@ def matmul_plan(M: int, K: int, N: int, dtype_bytes: int = 2
     Memoized per shape and dtype.
     """
     bm, bk, bn, stages = pick_blocks(M, K, N, dtype_bytes)
-    plan = plan_for_matmul(M, K, bn, bk, bn,
-                           vmem_budget=stages * stage_bytes(bm, bk, bn, dtype_bytes),
+    per_stage = stage_bytes(bm, bk, bn, dtype_bytes,
+                            swizzled=route(M, dtype_bytes) == "wgmma")
+    plan = plan_for_matmul(M, K, bn, bk, bn, vmem_budget=stages * per_stage,
                            num_slots=stages, dtype_bytes=dtype_bytes)
     plan.validate()
     return plan, (bm, bk, bn)
@@ -115,9 +159,11 @@ def ltrf_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"ltrf_matmul kernel launch failed: cudaError {err}")
     ltrf_matmul.launches += 1
+    ltrf_matmul.launches_by_route[route(M, x.element_size())] += 1
     return out
 
 
 ltrf_matmul.launches = 0
+ltrf_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 __all__ = ["ltrf_matmul", "matmul_plan", "matmul_ref", "pick_blocks"]

@@ -56,3 +56,58 @@ def test_first_causal_row_attends_to_itself():
     q, k, v = _qkv(1, 1, 1, 64, 32, seed=9)
     got = attention_ref(*(to_torch(a) for a in (q, k, v)))
     torch.testing.assert_close(got[0, 0, 0], to_torch(v)[0, 0, 0], rtol=1e-4, atol=1e-4)
+
+
+# chip_smoke.py's flash limits (elementwise, and a relative L2 over the output)
+FLASH_TOL = dict(rtol=1e-2, atol=1e-3)
+FLASH_REL_L2 = 1e-2
+
+
+def _wgmma_numerics(q, k, v, causal, split_p, block=128):
+    """The bf16 wgmma kernel's arithmetic in fp32 torch: S = Q K^T summed in
+    fp32 (products of bf16 values are exact), an online softmax over 128-key
+    tiles in the log2 domain, P rounded to bf16 before P V -- or split into
+    bf16 hi + lo parts, each through P V, as the kernel does -- the row sum
+    of the unrounded P, and one rounding of the output."""
+    B, H, S, d = q.shape
+    rep = H // k.shape[1]
+    q, k, v = q.float(), k.repeat_interleave(rep, 1).float(), v.repeat_interleave(rep, 1).float()
+    scale = 1.4426950408889634 / d ** 0.5
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros(B, H, S, 1)
+    o = torch.zeros(B, H, S, d)
+    qp = torch.arange(S).view(S, 1)
+    for k0 in range(0, S, block):
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, k0:k0 + block])
+        if causal:
+            s = s.masked_fill(torch.arange(k0, min(k0 + block, S)).view(1, -1) > qp, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * scale)
+        p = torch.exp2(s * scale - m_new * scale)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        p_used = hi + (p - hi).bfloat16().float() if split_p else hi
+        o = o * alpha + torch.einsum("bhqk,bhkd->bhqd", p_used, v[:, :, k0:k0 + block])
+        m = m_new
+    return (o / l.clamp_min(1e-30)).bfloat16()
+
+
+@pytest.mark.parametrize("cfg", [dict(B=2, H=8, KV=1, S=1024, d=64),    # chip_smoke's MQA check
+                                 dict(B=1, H=4, KV=1, S=63, d=128)], ids=["s1024", "s63"])
+def test_split_p_keeps_the_wgmma_kernel_within_the_flash_limits(cfg):
+    """Why the bf16 kernel splits P: with P rounded once to bf16, as FA2/FA3
+    round it, single outputs move past the elementwise limit (the relative
+    L2 stays far under its own); split into hi + lo, P keeps ~16 bits and
+    the kernel's arithmetic holds the reference within both."""
+    q, k, v = (to_torch(a, "bfloat16") for a in _qkv(**cfg, seed=11))
+    want = to_torch(jax_attention_ref(*(to_jax(a.float().numpy(), "bfloat16")
+                                        for a in (q, k, v)))).float()
+
+    def rel_l2(got):
+        return float((got.float() - want).norm() / want.norm())
+
+    split = _wgmma_numerics(q, k, v, True, split_p=True)
+    assert torch.allclose(split.float(), want, **FLASH_TOL) and rel_l2(split) <= FLASH_REL_L2
+    single = _wgmma_numerics(q, k, v, True, split_p=False)
+    assert not torch.allclose(single.float(), want, **FLASH_TOL)
+    assert rel_l2(single) <= FLASH_REL_L2

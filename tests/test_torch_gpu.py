@@ -21,9 +21,15 @@ pytestmark = pytest.mark.gpu
 # stated tolerances: bf16 outputs differ by sum order, at most ~1 bf16 ulp;
 # fp32 runs FFMA (not TF32) against torch's full-fp32 product
 TOL = {torch.bfloat16: dict(rtol=3e-2, atol=8e-2), torch.float32: dict(rtol=2e-4, atol=1e-4)}
-# flash_attention and its plain version both compute in fp32 and round once,
-# so in bf16 they differ by at most one ulp (< 8e-3 of the value); its
-# outputs are averages over the keys, well below 1, so the atol is small
+# flash_attention in bf16 (the wgmma kernel) computes S = Q K^T in fp32 (the
+# products of bf16 values are exact, so only the sum order differs), splits P
+# into bf16 hi + lo parts (~16 bits kept; a single bf16 P would move single
+# outputs by up to ~2e-3 relative and miss the elementwise limit) and
+# accumulates P V in fp32; the plain version computes in fp32.  Both round
+# once to bf16, so they differ by about one ulp (< 8e-3 of the value) where
+# the two fp32 values straddle a rounding point.  In fp32 the kernel is the
+# CUDA-core one.  Its outputs are averages over the keys, well below 1, so
+# the atol is small.
 FLASH_TOL = {torch.bfloat16: dict(rtol=1e-2, atol=1e-3), torch.float32: TOL[torch.float32]}
 # ssd_scan's chunk kernel against ssd_chunk_ref, both fp32 (chip_smoke.py's
 # limits and their reasons): a relative L2 per output, and elementwise rtol
@@ -65,6 +71,39 @@ def test_flash_attention_matches_plain(dev, cfg, dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), attention_ref(q, k, v, causal).float(),
                                **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("K,N", [(136, 264), (136, 8512), (5632, 264), (5632, 8512)])
+@pytest.mark.parametrize("M", [65, 128, 129, 300, 2048])
+def test_ltrf_matmul_wgmma_route_edges(dev, M, K, N):
+    """bf16 with M > 64 takes the wgmma route: M, K and N ragged against the
+    128-row, 64-deep and 128/256-column tiles."""
+    g = torch.Generator(dev).manual_seed(2)
+    x = torch.randn(M, K, device=dev, generator=g).bfloat16()
+    w = (torch.randn(K, N, device=dev, generator=g) / K ** 0.5).bfloat16()
+    before = dict(ltrf_matmul.launches_by_route)
+    got = ltrf_matmul(x, w)
+    torch.cuda.synchronize()
+    assert ltrf_matmul.launches_by_route == {**before, "wgmma": before["wgmma"] + 1}
+    torch.testing.assert_close(got.float(), matmul_ref(x, w).float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (4, 1)], ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("S", [1, 63, 65, 1000, 1024])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_wgmma_route_edges(dev, d, S, heads, causal):
+    """bf16 takes the wgmma route at every head dim, S ragged against the
+    128-row query and KV tiles, in MHA, GQA and MQA."""
+    H, KV = heads
+    g = torch.Generator(dev).manual_seed(3)
+    q, k, v = (torch.randn(2, n, S, d, device=dev, generator=g).bfloat16() for n in (H, KV, KV))
+    before = dict(flash_attention.launches_by_route)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route == {**before, "wgmma": before["wgmma"] + 1}
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, causal).float(),
+                               **FLASH_TOL[torch.bfloat16])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

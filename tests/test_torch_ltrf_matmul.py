@@ -13,13 +13,19 @@ from repro_torch.core import plan as tplan  # noqa: E402
 from repro_torch.kernels.ltrf_matmul import (  # noqa: E402
     ltrf_matmul, matmul_plan, matmul_ref, pick_blocks,
 )
-from repro_torch.kernels.ltrf_matmul.ops import SMEM_PER_CTA, stage_bytes  # noqa: E402
+from repro_torch.kernels.ltrf_matmul.ops import (  # noqa: E402
+    ROUTES, SMEM_PER_CTA, WGMMA_RESERVE, route, stage_bytes,
+)
 
 # test_kernels.py:27-28, plus decode-like shapes (M = 8 rows)
 SHAPES = [(128, 128, 128), (256, 384, 128), (300, 500, 200), (64, 1024, 96),
           (8, 2048, 256), (8, 512, 384)]
 # the slice's projections: decode (M=8) and prefill (M=2048) of tinyllama-1.1b
 SLICE_KN = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
+# and the other main-path projections: mamba2-1.3b's in_proj, out_proj and
+# vocab; zamba2-1.2b's in_proj and shared MLP
+MAIN_PATH_KN = SLICE_KN + [(2048, 8512), (4096, 2048), (2048, 50280), (2048, 8384),
+                           (2048, 8192), (8192, 2048)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -82,7 +88,8 @@ def test_per_cta_plan_validates(M, kn):
     plan.validate()
     _, _, _, stages = pick_blocks(M, K, N, 2)
     assert plan.num_slots == stages
-    assert plan.vmem_budget == stages * stage_bytes(bm, bk, bn, 2) <= SMEM_PER_CTA
+    swizzled = route(M, 2) == "wgmma"      # M = 2048: unpadded, swizzled stages
+    assert plan.vmem_budget == stages * stage_bytes(bm, bk, bn, 2, swizzled) <= SMEM_PER_CTA
     # the plan covers exactly one CTA's column of weight tiles
     assert sum(len(p.tiles) for p in plan.prefetches) >= -(-K // bk)
     assert matmul_plan(M, K, N, 2) is matmul_plan(M, K, N, 2)  # memoized
@@ -99,3 +106,43 @@ def test_pick_blocks_fits_shared_memory(shape, dtype_bytes):
     if M <= 64:
         assert bm >= M  # decode: one M-tile covers every row
     assert bm % 16 == 0 and bk % 16 == 0 and bn % 8 == 0
+
+
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
+@pytest.mark.parametrize("M", [1, 8, 16, 63, 64, 65, 128, 129, 300, 2048])
+def test_wgmma_route_is_exactly_bf16_prefill(M, dtype_bytes):
+    kind = route(M, dtype_bytes)
+    assert kind in ROUTES
+    assert (kind == "wgmma") == (dtype_bytes == 2 and M > 64)
+    assert (kind == "decode") == (dtype_bytes == 2 and M <= 64)
+    bm, bk, bn, stages = pick_blocks(M, 2048, 2048, dtype_bytes)
+    # the wgmma kernel's tiles: 128 rows (two warpgroups of 64), 64 deep
+    # (one 128-byte swizzled bf16 row), 128 or 256 columns
+    assert ((bm, bk) == (128, 64) and bn in (128, 256)) == (kind == "wgmma")
+
+
+@pytest.mark.parametrize("M", [65, 300, 2048])
+@pytest.mark.parametrize("kn", MAIN_PATH_KN)
+def test_wgmma_ring_fits_one_cta(M, kn):
+    """The swizzled ring and its barriers fit one CTA's shared memory at every
+    main-path shape, at least 2 and at most MAX_STAGES deep, and the per-CTA
+    plan validates with num_slots equal to that depth."""
+    K, N = kn
+    bm, bk, bn, stages = pick_blocks(M, K, N, 2)
+    per_stage = stage_bytes(bm, bk, bn, 2, swizzled=True)
+    assert per_stage == (bm * bk + bk * bn) * 2          # no row padding
+    assert 2 <= stages <= 6
+    assert stages * per_stage + WGMMA_RESERVE <= SMEM_PER_CTA
+    assert (stages + 1) * per_stage + WGMMA_RESERVE > SMEM_PER_CTA or stages == 6
+    plan, blocks = matmul_plan(M, K, N, 2)
+    plan.validate()
+    assert blocks == (bm, bk, bn)
+    assert plan.num_slots == stages and plan.vmem_budget == stages * per_stage
+
+
+def test_wgmma_tile_width_spreads_narrow_n():
+    # tinyllama's wk / wv (N = 256): 128-wide tiles give 32 CTAs, not 16
+    assert pick_blocks(2048, 2048, 256, 2)[2] == 128
+    # wide N takes 256-wide tiles (fewer bytes of shared memory per flop)
+    for N in (2048, 5632, 8384, 8512, 32000, 50280):
+        assert pick_blocks(2048, 2048, N, 2)[2] == 256
