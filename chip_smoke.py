@@ -15,7 +15,9 @@ exits non-zero; no phase's error is caught):
    kernel, the plain version and one PyTorch library call for the same
    function where there is one (``library_ms``; the port never calls it),
    beside its bound.  Planted faults show what the flash and ssd limits
-   catch.
+   catch.  Each matmul check also records the decode route's K split (and
+   cluster size) and requires two launches to give the same bits; each ssd check also gives
+   ``bound_tc_ms``, its work as the kernel does it (3 bf16 products each).
 4. prefill -- full-width tinyllama-1.1b ``loss_fn`` on B=2 x S=1024 tokens
    from the seed, on the kernel path; logits and loss held against the plain
    path on the card, and each layer's ``flash_attention`` call against its
@@ -76,7 +78,10 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
-from repro_torch.kernels.ltrf_matmul import ltrf_matmul, matmul_plan, matmul_ref  # noqa: E402
+from repro_torch.kernels.ltrf_matmul import (  # noqa: E402
+    ltrf_matmul, matmul_plan, matmul_ref, split_k,
+)
+from repro_torch.kernels.ltrf_matmul.ops import DECODE_MAX_CLUSTER  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_scan  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
@@ -116,12 +121,16 @@ FLASH_REL_L2 = 1e-2
 MODEL_LOGITS_REL_L2 = 3.5e-2
 MODEL_LOSS_REL = 1e-2
 ZEROED_KV = slice(512, 576)        # the planted fault's KV tile (rows of S)
-# ssd_scan vs ssd_chunk_ref: both fp32, the same products summed in another
-# order (FFMA on the CUDA cores against torch's fp32 matmuls) and cum summed
+# ssd_scan vs ssd_chunk_ref: fp32 in and out; the kernel's products are
+# bf16x3 on the tensor cores (each operand split into bf16 high and low
+# parts, ~16 bits kept; emulated on the CPU at mamba2's widths this alone
+# reads a relative L2 of 5e-6, where single TF32 products read 3.3e-4),
+# summed in fp32 in another order than torch's fp32 matmuls, and cum summed
 # by another scan.  The sharp limit is a relative L2 per output: on an H100
-# sound reads are 2e-6 to 1.7e-5 (kernel-check shapes and every layer's
-# inputs of both models), and a planted fault (one 64-row block of x zeroed
-# in one chunk) reads 0.17-0.31 on y_intra and must fail.  Elementwise, the
+# sound reads were 2e-6 to 1.7e-5 with the earlier all-fp32 kernel
+# (kernel-check shapes and every layer's inputs of both models), and a
+# planted fault (one 64-row block of x zeroed in one chunk) reads 0.17-0.31
+# on y_intra and must fail.  Elementwise, the
 # fp32 _tol row (rtol 2e-4, atol 1e-4 times the output's RMS) is 10x too
 # tight for single terms: each decay is exp(cum_i - cum_j) of two fp32
 # cumulative sums that reach |Q dt A| ~ 1e3-1e4 at Q = 256, whose ulp is
@@ -292,18 +301,31 @@ def forward_launches(cfg) -> dict:
             "ssd_scan": 0 if cfg.family == "dense" else cfg.n_layers}
 
 
-def ssd_bound(B, S, H, P, N, Q) -> tuple[float, str]:
-    """Bytes: each input read once, each output written once.  Operations:
-    the lower triangle of C B^T once per (b, chunk), and per head the lower
-    triangle of (C B^T o L)(x dt) and the state product, over the rows of
-    each chunk that lie inside S."""
+def ssd_work(B, S, H, P, N, Q) -> tuple[float, float]:
+    """(bytes, flops).  Bytes: each input read once, each output written
+    once.  Operations: the lower triangle of C B^T once per (b, chunk), and
+    per head the lower triangle of (C B^T o L)(x dt) and the state product,
+    over the rows of each chunk that lie inside S."""
     nc = -(-S // Q)
     rows = [min(Q, S - c * Q) for c in range(nc)]
     tri = sum(q * (q + 1) / 2 for q in rows)
     flops = B * (2 * N * tri + H * (2 * P * tri + 2 * P * N * sum(rows)))
     nbytes = 4 * (B * S * H * P + B * S * H + H + 2 * B * S * N
                   + B * nc * H * (Q * P + P * N + Q + 1))
-    return bound(nbytes, flops, torch.float32)
+    return nbytes, flops
+
+
+def ssd_bound(B, S, H, P, N, Q) -> tuple[float, str]:
+    """The work at the fp32 CUDA-core rate (67 TFLOP/s): the FFMA kernel's bound."""
+    return bound(*ssd_work(B, S, H, P, N, Q), torch.float32)
+
+
+def ssd_bound_tc(B, S, H, P, N, Q) -> float:
+    """The same work as the kernel does it: each fp32 product as three bf16
+    tensor-core products (bf16x3) at 989 TFLOP/s, or the bytes if they take
+    longer."""
+    nbytes, flops = ssd_work(B, S, H, P, N, Q)
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, 3 * flops / PEAK_FLOPS[torch.bfloat16])
 
 
 def phase_device() -> dict:
@@ -354,12 +376,19 @@ def check_matmuls(cfgs, dev, gen) -> list:
         x = torch.randn(M, K, device=dev, generator=gen).to(dt)
         w = (torch.randn(K, N, device=dev, generator=gen) / math.sqrt(K)).to(dt)
         got = ltrf_matmul(x, w)
+        again = ltrf_matmul(x, w)
         torch.cuda.synchronize()
         rec = {"M": M, "K": K, "N": N, "dtype": str(dt).split(".")[-1],
-               **compare(got, matmul_ref(x, w), dt)}
+               **compare(got, matmul_ref(x, w), dt),
+               "same_bits_twice": bool(torch.equal(got, again))}
+        del again
         plan, blocks = matmul_plan(M, K, N, x.element_size())
-        rec["plan"] = {"blocks_mkn": blocks, "intervals": plan.num_intervals,
-                       "slots": plan.num_slots, "max_bytes_per_round": plan.max_interval_bytes(),
+        split = split_k(M, K, N, x.element_size())
+        rec["plan"] = {"blocks_mkn": blocks, "split_k": split,
+                       "ctas": -(-N // blocks[2]) * split if split > 1 else None,
+                       "cluster": split if 1 < split <= DECODE_MAX_CLUSTER else None,
+                       "intervals": plan.num_intervals, "slots": plan.num_slots,
+                       "max_bytes_per_round": plan.max_interval_bytes(),
                        "smem_per_cta": plan.vmem_budget}
         copies = [w] + [w.clone() for _ in range(max(0, math.ceil(2 * L2_BYTES / w.nbytes) - 1))]
         rec["ms"], rec["eager_ms"] = time_ms([lambda w=c: ltrf_matmul(x, w) for c in copies])
@@ -371,6 +400,9 @@ def check_matmuls(cfgs, dev, gen) -> list:
         del copies
         emit({"check": "ltrf_matmul", **rec})
         check(rec["within_tol"], f"ltrf_matmul {M}x{K}x{N} {dt} disagrees with plain: {rec}")
+        # the decode route's split-K sums its slices in a fixed order: serving
+        # compares greedy tokens, so two launches must give the same bits
+        check(rec["same_bits_twice"], f"ltrf_matmul {M}x{K}x{N} {dt}: two launches differ")
         res.append(rec)
     return res
 
@@ -438,6 +470,7 @@ def check_ssd(dev, gen) -> list:
         rec["plain_ms"], _ = time_ms([lambda: ssd_chunk_ref(*ins, Q)], min_iters=3)
         rec["library_ms"] = None                 # no PyTorch call computes it
         rec["bound_ms"], rec["bound_by"] = ssd_bound(B, S, H, P, N, Q)
+        rec["bound_tc_ms"] = ssd_bound_tc(B, S, H, P, N, Q)
         emit({"check": "ssd_scan", **rec})
         check(not planted["within_tol"], f"ssd check passes a zeroed x block: {rec}")
         check(rec["within_tol"], f"ssd_scan {rec} disagrees with ssd_chunk_ref")
@@ -541,8 +574,11 @@ def prefill_batch(cfg, dev, seed) -> dict:
 def loss_fn_ms(cfg, params, batch, reps: int = 5) -> dict:
     """Host-clock ms of one ``loss_fn`` (ending in a synchronise) on each
     path, the median of ``reps`` calls and their spread (min, max): single
-    calls vary by up to 1.5x between calls of the same code, as the host's
-    share of a prefill does."""
+    calls vary by up to 1.8x between calls of the same code, as the host's
+    share of a prefill does.  Also the device-busy ms of one more call,
+    from the profiler's kernel spans, which the host's speed does not move."""
+    from torch.profiler import ProfilerActivity, profile
+
     out = {}
     for name, kern in (("kernel", True), ("plain", False)):
         samples = []
@@ -554,7 +590,29 @@ def loss_fn_ms(cfg, params, batch, reps: int = 5) -> dict:
             samples.append(1e3 * (time.perf_counter() - t0))
         out[f"{name}_loss_fn_ms"] = statistics.median(samples)
         out[f"{name}_loss_fn_ms_range"] = [min(samples), max(samples)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loss_fn(params, batch, cfg, kernels=kern)
+            torch.cuda.synchronize()
+        out[f"{name}_loss_fn_device_busy_ms"] = sum(device_spans(prof)[0].values()) / 1e3
     return out
+
+
+def device_spans(prof, trace_name: str | None = None) -> tuple[dict, int]:
+    """Device time in microseconds by kernel (and copy, and memset) name, and
+    the number of such spans, from a finished profiler's Chrome trace (kept
+    under chiprun_out/ as ``trace_name`` when one is given)."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    trace = out_dir / (trace_name or "last_trace.json")
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    if trace_name is None:
+        trace.unlink()
+    spans = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    by_name: dict = {}
+    for e in spans:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    return by_name, len(spans)
 
 
 def flash_per_layer(calls, n_expected) -> dict:
@@ -816,15 +874,7 @@ def phase_profile(cfg, params, dev, trace_name="decode_trace.json") -> dict:
             step(n)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    trace = out_dir / trace_name
-    prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text())["traceEvents"]
-    spans = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    by_name: dict = {}
-    for e in spans:
-        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    by_name, n_spans = device_spans(prof, trace_name)
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     # a step reads every weight but the embedding table (of which it gathers
@@ -839,7 +889,7 @@ def phase_profile(cfg, params, dev, trace_name="decode_trace.json") -> dict:
     return {"steps": n_steps, "wall_ms_per_step": 1e3 * wall / n_steps,
             "device_busy_ms_per_step": busy_ms / n_steps,
             "device_busy_share": busy_ms / (1e3 * wall),
-            "device_ops_per_step": len(spans) / n_steps,
+            "device_ops_per_step": n_spans / n_steps,
             "top_kernels_ms_per_step": [(name[:80], d / 1e3 / n_steps) for name, d in top],
             "bytes_per_step": nbytes,
             "hbm_bound_ms_per_step": 1e3 * (nbytes["weights"] + 2 * nbytes["ssm_state"]
@@ -896,7 +946,7 @@ def kernels_line(cfgs, checks, paths, routes) -> dict:
              for cfg in cfgs}
     tiny = mixes[ARCH]
     fa, fa_hybrid = checks["flash_attention"][0], checks["flash_attention"][-1]
-    ssd = checks["ssd_scan"][0]
+    ssd, ssd_hybrid = checks["ssd_scan"][0], checks["ssd_scan"][2]
     return {"kernels": [
         {"name": "ltrf_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/ltrf_matmul.cu",
@@ -937,11 +987,15 @@ def kernels_line(cfgs, checks, paths, routes) -> dict:
          "launches": launches["ssd_scan"],
          "max_abs_err": max(r["max_abs_err"] for r in checks["ssd_scan"]),
          "ms": ssd["ms"], "plain_ms": ssd["plain_ms"], "bound_ms": ssd["bound_ms"],
-         "bound_by": ssd["bound_by"], "library_ms": None,
+         "bound_by": ssd["bound_by"], "bound_tc_ms": ssd["bound_tc_ms"], "library_ms": None,
          "library_note": "no single PyTorch call computes the chunked SSD",
          "unit": (f"one launch at B={ssd['B']}, S={ssd['S']}, H={ssd['H']}, P={ssd['P']}, "
                   f"N={ssd['N']}, Q={ssd['Q']}, fp32 (48 per {SSM_ARCH} prefill forward, "
-                  f"38 per {HYBRID_ARCH})"),
+                  f"38 per {HYBRID_ARCH}); bound_ms at the fp32 FFMA rate, bound_tc_ms "
+                  "at 3 bf16 tensor-core products each"),
+         HYBRID_ARCH: {"unit": f"one launch at N={ssd_hybrid['N']}, otherwise as above",
+                       **{k: ssd_hybrid[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "bound_tc_ms", "max_abs_err")}},
          "launches_by_path": {k: p["ssd_scan"] for k, p in paths.items()}},
     ]}
 

@@ -40,12 +40,15 @@
 // against a 4.28 ms bound, 66 % (cuBLAS: 6.25 ms); mamba2-1.3b's 65 % and
 // zamba2-1.2b's 74 %.
 //
-// decode (bf16, M <= 64) and fp32 (any M): a cp.async ring of padded tiles
-// feeding mma.sync m16n8k16 (bf16) or FFMA in the same register layout (fp32:
-// never TF32, which misses fp32 tolerances).  For decode one M-tile covers
-// all rows, so each weight byte is read from HBM once per step; narrow
-// 32-column tiles give more CTAs to stream weights.  Both are bound far from
-// the card's limits; PERF.md has their times.
+// decode (bf16, M <= 64; serving).  The product swapped (the weight is
+// wgmma's A operand, the few rows of x its B), K split so that every shape
+// fills the card, a TMA ring per CTA and a deterministic reduction of the
+// slices inside a thread block cluster (or, past 8 slices, by the last CTA
+// of each tile): see the section below.
+//
+// fp32 (any M): a cp.async ring of padded tiles feeding FFMA in the mma.sync
+// register layout (never TF32, which misses fp32 tolerances), bound far from
+// the card's limits; PERF.md has its times.
 
 #include "hopper.cuh"
 
@@ -78,23 +81,10 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
   }
 }
 
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// Accumulator layout (the mma.sync m16n8 C fragment, used by both paths):
+// fp32 route: FFMA over a cp.async ring.  Accumulator layout (the mma.sync
+// m16n8 C fragment):
 // acc[mt][nt][0..3] holds rows (g, g, g+8, g+8) and columns (2t, 2t+1, 2t, 2t+1)
 // of the warp's (mt, nt) 16x8 sub-tile, with g = lane / 4 and t = lane % 4.
 template <typename T, int BM, int BN, int BK, int WM, int WN>
@@ -172,55 +162,29 @@ ltrf_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
 
     const T* xt = xs + (kt % stages) * kXTile;
     const T* wt = ws + (kt % stages) * kWTile;
-    if constexpr (sizeof(T) == 2) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t a[MT][4];
-        uint32_t b[NT][2];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const T* p = xt + (wm0 + i * 16 + g) * LDX + kk + 2 * t;
-          a[i][0] = *reinterpret_cast<const uint32_t*>(p);
-          a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDX);
-          a[i][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-          a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDX + 8);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const T* q = wt + (kk + 2 * t) * LDW + wn0 + j * 8 + g;
-          b[j][0] = pack2(q[0], q[LDW]);
-          b[j][1] = pack2(q[8 * LDW], q[9 * LDW]);
-        }
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-      }
-    } else {
 #pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[MT][2];
-        float b[NT][2];
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[MT][2];
+      float b[NT][2];
 #pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          a[i][0] = xt[(wm0 + i * 16 + g) * LDX + kk];
-          a[i][1] = xt[(wm0 + i * 16 + g + 8) * LDX + kk];
-        }
+      for (int i = 0; i < MT; ++i) {
+        a[i][0] = xt[(wm0 + i * 16 + g) * LDX + kk];
+        a[i][1] = xt[(wm0 + i * 16 + g + 8) * LDX + kk];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        b[j][0] = wt[kk * LDW + wn0 + j * 8 + 2 * t];
+        b[j][1] = wt[kk * LDW + wn0 + j * 8 + 2 * t + 1];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
-          b[j][0] = wt[kk * LDW + wn0 + j * 8 + 2 * t];
-          b[j][1] = wt[kk * LDW + wn0 + j * 8 + 2 * t + 1];
+          acc[i][j][0] = fmaf(a[i][0], b[j][0], acc[i][j][0]);
+          acc[i][j][1] = fmaf(a[i][0], b[j][1], acc[i][j][1]);
+          acc[i][j][2] = fmaf(a[i][1], b[j][0], acc[i][j][2]);
+          acc[i][j][3] = fmaf(a[i][1], b[j][1], acc[i][j][3]);
         }
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            acc[i][j][0] = fmaf(a[i][0], b[j][0], acc[i][j][0]);
-            acc[i][j][1] = fmaf(a[i][0], b[j][1], acc[i][j][1]);
-            acc[i][j][2] = fmaf(a[i][1], b[j][0], acc[i][j][2]);
-            acc[i][j][3] = fmaf(a[i][1], b[j][1], acc[i][j][3]);
-          }
-      }
     }
   }
   cp_async_wait(0);
@@ -251,15 +215,209 @@ cudaError_t launch(const void* x, const void* w, void* out, int M, int K, int N,
   return cudaGetLastError();
 }
 
-// Decode tiles (M <= 64): one M-tile of BM rows, 4 warps side by side in N.
-template <typename T, int BK>
-cudaError_t launch_decode(const void* x, const void* w, void* out, int M, int K, int N,
-                          int bm, int stages, cudaStream_t stream) {
+// fp32 tiles for M <= 64: one M-tile of BM rows, 4 warps side by side in N.
+cudaError_t launch_fp32_narrow(const void* x, const void* w, void* out, int M, int K, int N,
+                               int bm, int stages, cudaStream_t stream) {
   switch (bm) {
-    case 16: return launch<T, 16, 32, BK, 1, 4>(x, w, out, M, K, N, stages, stream);
-    case 32: return launch<T, 32, 32, BK, 1, 4>(x, w, out, M, K, N, stages, stream);
-    case 64: return launch<T, 64, 32, BK, 1, 4>(x, w, out, M, K, N, stages, stream);
+    case 16: return launch<float, 16, 32, 64, 1, 4>(x, w, out, M, K, N, stages, stream);
+    case 32: return launch<float, 32, 32, 64, 1, 4>(x, w, out, M, K, N, stages, stream);
+    case 64: return launch<float, 64, 32, 64, 1, 4>(x, w, out, M, K, N, stages, stream);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------- decode route
+//
+// bf16, M <= 64: out^T (N x M) = w^T (N x K) . x^T (K x M), so the weight is
+// wgmma's A operand (64 output columns a CTA, read MN-major with the
+// transpose bit from the same 64-column, 128-byte-swizzled TMA boxes as the
+// wgmma route: no copy, no padding of the weight) and the M rows of x are
+// its B operand (K-major, 64-byte swizzled boxes of 32 K values), padded to
+// MP = 8, 16, 32 or 64 by TMA's zero fill.  The product is bound by the
+// weight bytes, so what matters is bytes in flight on every SM: K is split
+// into `split` slices, so that (N / 64) x split CTAs cover the card, and each
+// CTA streams its slice's 32-row weight boxes through a `stages`-deep ring
+// (one producer warp issuing TMA, one consumer warpgroup issuing wgmma, full
+// and empty mbarriers per stage).  The slices of a tile are summed in the
+// fixed order 0 .. split-1 and rounded once to bf16, so two launches give the
+// same bits; no float atomics.  With split <= 8 the tile's CTAs form a
+// thread block cluster: slices 1 .. split-1 store their fp32 partials into
+// slice 0's shared memory and arrive at the cluster barrier, and slice 0
+// sums them (through global memory, the fence, the counter and the loads
+// cost a round trip each, the largest fixed cost of a launch).  With more
+// slices each CTA writes its partial to a workspace and bumps the tile's
+// counter; the CTA that arrives last sums the slices and resets the counter
+// to 0, so a CUDA graph can replay the launch.  Measured (chip_smoke.py, H100
+// 80GB HBM3 at 700 W): a decode step's matmuls at 1.00-1.03x torch.matmul's
+// time, ~2.2x their bytes bound; PERF.md has the shapes.
+
+constexpr int kDecBK = 32;                 // K rows of one stage
+constexpr int kDecBN = 64;                 // output columns of a CTA (wgmma's M)
+constexpr int kDecThreads = 160;           // consumer warpgroup + producer warp
+constexpr int kDecMaxStages = 16;
+constexpr int kDecMaxCluster = 8;          // the portable cluster size
+constexpr int kDecWBytes = kDecBK * kDecBN * 2;   // one weight box, 4 KB
+
+template <int MP>
+__host__ __device__ constexpr int dec_x_bytes() { return MP * kDecBK * 2; }
+// the x box sits 1024-byte aligned after the weight box
+template <int MP>
+__host__ __device__ constexpr int dec_stage_bytes() {
+  return kDecWBytes + (dec_x_bytes<MP>() < 1024 ? 1024 : dec_x_bytes<MP>());
+}
+// the ring, its barriers, a flag (16 bytes) and, for a clustered split,
+// slice 0's slots for the other slices' partials
+template <int MP>
+size_t dec_smem_bytes(int stages, int split) {
+  const int gather = split > 1 && split <= kDecMaxCluster ? (split - 1) * kDecBN * MP * 4 : 0;
+  return 1024 + (size_t)stages * (dec_stage_bytes<MP>() + 2 * sizeof(uint64_t)) + 16 + gather;
+}
+
+template <int MP>
+__global__ void __launch_bounds__(kDecThreads)
+ltrf_matmul_decode(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ partials,
+                   int* __restrict__ counters, int M, int K, int N, int split, int stages) {
+  constexpr int kStage = dec_stage_bytes<MP>();
+  constexpr int kTx = kDecWBytes + dec_x_bytes<MP>();
+  constexpr int kAcc = MP / 2;             // fp32 accumulators a thread
+  // dynamic shared memory only: allow_smem asks for all of it
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)stages * kStage);
+  uint64_t* empty = full + stages;
+  int* last_cta = reinterpret_cast<int*>(empty + stages);
+  float* gather = reinterpret_cast<float*>(empty + stages + 2);
+
+  const int tile = blockIdx.x / split;     // the split CTAs of one tile are neighbours
+  const int slice = blockIdx.x % split;
+  const int n0 = tile * kDecBN;
+  const int n_kb = (K + kDecBK - 1) / kDecBK;
+  const int kb0 = (int)((long long)slice * n_kb / split);
+  const int nk = (int)((long long)(slice + 1) * n_kb / split) - kb0;   // >= 1: split <= n_kb
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer: the i-th stage of the slice goes to slot i % stages once the
+    // consumers have released that slot's previous stage
+    if (threadIdx.x == 128) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % stages;
+        if (i >= stages) mbar_wait(&empty[s], ((i / stages) + 1) & 1);
+        unsigned char* st = smem + (size_t)s * kStage;
+        mbar_expect_tx(&full[s], kTx);
+        tma_load_2d(st, &tw, &full[s], n0, (kb0 + i) * kDecBK);
+        tma_load_2d(st + kDecWBytes, &tx, &full[s], (kb0 + i) * kDecBK, 0);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x;
+  float acc[kAcc];
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % stages;
+    mbar_wait(&full[s], (i / stages) & 1);
+    const uint32_t wa = smem_u32(smem + (size_t)s * kStage);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDecBK / 16; ++kk)
+      wgmma_ss_tn<MP>(acc, desc_mnmajor(wa, kDecBK, 128, kk),
+                      desc_kmajor(wa + kDecWBytes, MP, 64, kk), 1);
+    wgmma_commit();
+    // keep this stage's products in flight; the previous stage's are done
+    wgmma_wait<1>();
+    fence_regs(acc);
+    if (i > 0 && tid == 0) mbar_arrive(&empty[(i - 1) % stages]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  const size_t tile_floats = (size_t)kDecBN * MP;
+  if (split > 1 && split <= kDecMaxCluster) {
+    // the cluster is the tile's slices: slice s > 0 stores its partial, in
+    // the accumulator layout, into slot s - 1 of slice 0's shared memory
+    if (slice > 0) {
+      const uint32_t dst =
+          cluster_map(smem_u32(gather + (slice - 1) * tile_floats + tid * kAcc), 0);
+#pragma unroll
+      for (int j = 0; j < kAcc; j += 4)
+        st_cluster_v4(dst + 4 * j, acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+    }
+    cluster_arrive_release();
+    if (slice > 0) return;
+    cluster_wait_acquire();
+    for (int sl = 1; sl < split; ++sl) {
+#pragma unroll
+      for (int j = 0; j < kAcc; j += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(gather + (sl - 1) * tile_floats + tid * kAcc + j);
+        acc[j] += v.x; acc[j + 1] += v.y; acc[j + 2] += v.z; acc[j + 3] += v.w;
+      }
+    }
+  } else if (split > 1) {
+    // this slice's partial tile, in the accumulator layout, then the counter
+    float4* mine = reinterpret_cast<float4*>(partials + (size_t)blockIdx.x * tile_floats + tid * kAcc);
+#pragma unroll
+    for (int j = 0; j < kAcc; j += 4)
+      mine[j / 4] = make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+    named_barrier(1, 128);
+    if (tid == 0) {
+      __threadfence();                      // the CTA's partial before its count
+      *last_cta = atomicAdd(&counters[tile], 1) == split - 1;
+    }
+    named_barrier(1, 128);
+    if (!*last_cta) return;
+    __threadfence();
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
+    // the slices in the fixed order 0 .. split-1, loaded kBatch at a time so
+    // that their L2 round trips overlap
+    constexpr int kBatch = 16;
+    const float* base = partials + (size_t)tile * split * tile_floats + tid * kAcc;
+    for (int s0 = 0; s0 < split; s0 += kBatch) {
+#pragma unroll
+      for (int j = 0; j < kAcc; j += 4) {
+        float4 v[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b)
+          if (s0 + b < split)
+            v[b] = __ldcg(reinterpret_cast<const float4*>(base + (s0 + b) * tile_floats + j));
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b)
+          if (s0 + b < split) {
+            acc[j] += v[b].x; acc[j + 1] += v[b].y; acc[j + 2] += v[b].z; acc[j + 3] += v[b].w;
+          }
+      }
+    }
+    if (tid == 0) counters[tile] = 0;
+  }
+
+  // round once into shared memory (MP x 64 bf16, the ring's first stage:
+  // every load has landed and been read), then 16-byte rows of out
+  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int lane = tid % 32;
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) {
+    const int n = 16 * (tid / 32) + lane / 4 + 8 * ((j / 2) % 2);
+    const int m = 8 * (j / 4) + 2 * (lane % 4) + j % 2;
+    o[m * kDecBN + n] = __float2bfloat16_rn(acc[j]);
+  }
+  named_barrier(1, 128);
+  for (int c = tid; c < MP * (kDecBN / 8); c += 128) {
+    const int m = c / (kDecBN / 8), nc = (c % (kDecBN / 8)) * 8;
+    if (m < M && n0 + nc < N)
+      *reinterpret_cast<uint4*>(out + (size_t)m * N + n0 + nc) =
+          *reinterpret_cast<const uint4*>(o + m * kDecBN + nc);
   }
 }
 
@@ -436,28 +594,82 @@ cudaError_t launch_wgmma(const void* x, const void* w, void* out, int M, int K, 
   return cudaGetLastError();
 }
 
+template <int MP>
+cudaError_t launch_decode(const void* x, const void* w, void* out, void* partials, void* counters,
+                          int M, int K, int N, int split, int stages, cudaStream_t stream) {
+  CUtensorMap tx, tw;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t x_box[2] = {kDecBK, MP};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t w_box[2] = {kDecBN, kDecBK};
+  if (!make_tmap(&tx, x, 2, x_dims, x_strides, x_box, 64) ||
+      !make_tmap(&tw, w, 2, w_dims, w_strides, w_box, 128))
+    return cudaErrorInvalidValue;
+  const size_t smem = dec_smem_bytes<MP>(stages, split);
+  if (smem > (size_t)kSmemPerBlock) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem<ltrf_matmul_decode<MP>>();
+  if (err != cudaSuccess) return err;
+  const int tiles = (N + kDecBN - 1) / kDecBN;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * split);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = split > 1 && split <= kDecMaxCluster ? split : 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  float* p = static_cast<float*>(partials);
+  int* c = static_cast<int*>(counters);
+  void* args[] = {&tx, &tw, &o, &p, &c, &M, &K, &N, &split, &stages};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(ltrf_matmul_decode<MP>), args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  (bm, bk, bn) must be one of the tile
-// shapes pick_blocks returns; anything else is refused before launch.
+// shapes pick_blocks returns; anything else is refused before launch.  The
+// decode route (bf16, bk = 32, bn = 64) also takes the K split (1 .. number
+// of 32-row K blocks) and, when split > 8, an fp32 workspace of
+// ceil(N / 64) * split * 64 * bm floats and ceil(N / 64) int counters that
+// are 0 (and are 0 again when the launch ends).  Other routes take split = 1.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int ltrf_matmul_launch(const void* x, const void* w, void* out, int M, int K, int N,
-                                  int dtype, int bm, int bk, int bn, int stages, void* stream) {
-  if (stages < 2 || stages > kMaxStages || M <= 0 || K <= 0 || N <= 0)
-    return cudaErrorInvalidValue;
+                                  int dtype, int bm, int bk, int bn, int stages, int split,
+                                  void* partials, void* counters, void* stream) {
+  if (stages < 2 || M <= 0 || K <= 0 || N <= 0 || split < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && bk == kDecBK && bn == kDecBN) {
+    if (stages > kDecMaxStages || M > bm || split > (K + kDecBK - 1) / kDecBK ||
+        (split > kDecMaxCluster && (!partials || !counters)))
+      return cudaErrorInvalidValue;
+    switch (bm) {
+      case 8: return launch_decode<8>(x, w, out, partials, counters, M, K, N, split, stages, s);
+      case 16: return launch_decode<16>(x, w, out, partials, counters, M, K, N, split, stages, s);
+      case 32: return launch_decode<32>(x, w, out, partials, counters, M, K, N, split, stages, s);
+      case 64: return launch_decode<64>(x, w, out, partials, counters, M, K, N, split, stages, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (stages > kMaxStages || split != 1) return cudaErrorInvalidValue;
   if (dtype == 1) {
     if (bm == kWgBM && bk == kWgBK && bn == 128)
       return launch_wgmma<128>(x, w, out, M, K, N, stages, s);
     if (bm == kWgBM && bk == kWgBK && bn == 256)
       return launch_wgmma<256>(x, w, out, M, K, N, stages, s);
-    if (bk == 128 && bn == 32)
-      return launch_decode<__nv_bfloat16, 128>(x, w, out, M, K, N, bm, stages, s);
   } else if (dtype == 0) {
     if (bm == 128 && bk == 32 && bn == 128)
       return launch<float, 128, 128, 32, 2, 4>(x, w, out, M, K, N, stages, s);
     if (bk == 64 && bn == 32)
-      return launch_decode<float, 64>(x, w, out, M, K, N, bm, stages, s);
+      return launch_fp32_narrow(x, w, out, M, K, N, bm, stages, s);
   }
   return cudaErrorInvalidValue;
 }

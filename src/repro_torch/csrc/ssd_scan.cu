@@ -21,24 +21,34 @@
 // What bounds it on an H100: at the mamba2-1.3b prefill shape (B=2, S=1024,
 // H=64, P=64, N=128, Q=256) the necessary work is ~4.4 GFLOP (the lower
 // triangle of both Q x Q products, and C B^T once per (b, chunk)) against
-// ~87 MB moved, so it is bound by operations: ~0.066 ms at the 67 TFLOP/s
-// fp32 rate.  It computes in fp32 on the CUDA cores (FFMA; TF32 would miss
-// the fp32 tolerance), built without fast math so that expf is the accurate
-// one.
+// ~87 MB moved, so it is bound by operations.  The products run on the tensor
+// cores (mma.sync m16n8k16 bf16) in bf16x3 form: each fp32 operand is split
+// into a bf16 high part and a bf16 low part (the remainder, rounded), and
+// a b = a_lo b_hi + a_hi b_lo + a_hi b_hi keeps ~16 mantissa bits, which
+// holds the fp32 limits with a margin of ~20 (one bf16 or TF32 product keeps
+// 8 or 11 bits and misses them).  Sums are fp32.  No fast math: expf is the
+// accurate one.
 //
-// What the design does about it: one CTA (256 threads) per (b, chunk, head)
-// keeps the chunk's working set out of HBM.  The whole (Q x Q) C B^T tile
-// (256 KB at Q = 256) does not fit the 227 KB of shared memory, so the CTA
-// walks 64-row i-blocks and, for each, the j-blocks j <= i: it stages C_i,
-// B_j and (x dt)_j (zero-padded to the template widths NP, NN), forms
-// (C_i B_j^T) o L in a 64 x 64 shared tile and accumulates y_i in registers
-// (4 rows x NP/16 columns a thread).  Blocks above the diagonal are skipped
-// (they are exactly 0).  A second walk over the j-blocks accumulates the
-// P x N state in registers.  cum is a block-wide scan (warp shuffles), one
-// row a thread.  C B^T does not depend on the head and is recomputed by each
-// of the H CTAs of a (b, chunk); one CTA per (b, chunk) over all heads, with
-// mma for the products, is the later redesign.
+// What the design does about it.  C B^T does not depend on the head, so a
+// "y CTA" works on one (b, chunk, 64-row i-block) and a group of HG heads:
+// it forms G = C_i B_{<=i}^T once (the blocks at or below the diagonal only)
+// into shared memory, then runs its heads two at a time, one per warp quad:
+// (G o L_h) is built in registers as the A fragment (G from shared memory
+// times the decay, masked inside the diagonal block only) and multiplied by
+// the head's (x dt) block, split into high and low parts as it is staged.
+// The chunk states go to "state CTAs", one per (b, chunk) and group of HS
+// heads: B of the whole chunk is staged (split) once and each head's
+// (x dt decay_end) blocks stream past it.  Every x and B block is loaded
+// into registers one block ahead of its use, so its latency hides under the
+// products of the block before.  These CTAs also write in_decay and
+// chunk_decay.  Each CTA scans cum for its heads (one warp a head).  The
+// grid starts with the heaviest CTAs (the last i-block's y CTAs, then the
+// state CTAs, then the other i-blocks' from the bottom up) so that the light
+// ones fill the tail.  Measured (chip_smoke.py, H100 80GB HBM3 at 700 W):
+// 0.125 ms at the mamba2-1.3b shape, 1.9x its bound at the fp32 FFMA rate
+// and 4.8x its bytes bound; PERF.md has the rest.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,249 +56,463 @@ namespace {
 
 constexpr int kSmemPerBlock = 232448;  // H100: dynamic shared memory per block
 constexpr int kMaxDevices = 64;
-constexpr int kThreads = 256;          // 16 x 16; one thread per chunk row for the scan
-constexpr int kMaxQ = kThreads;
+constexpr int kThreads = 256;          // 8 warps
+constexpr int kMaxQ = 256;
 constexpr int BR = 64;                 // rows of an i- or j-block
-constexpr int LDS = BR + 4;            // row stride of the (G o L) tile
+constexpr int HG = 8;                  // heads of a y CTA (two at a time)
+constexpr int HS = 4;                  // heads of a state CTA
+
+struct Args {
+  const float *x, *dt, *A, *Bm, *Cm;
+  float *y, *states, *in_decay, *chunk_decay;
+  int B, S, H, P, N, Q;
+};
 
 __device__ __forceinline__ float decay(float v) { return expf(fminf(fmaxf(v, -60.f), 0.f)); }
 
-__device__ __forceinline__ float comp(const float4& v, int k) {
-  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// out[0 .. W-1] = p[0 .. W-1]; p is aligned to W floats (W <= 4) or to 4.
-template <int W>
-__device__ __forceinline__ void load_row(const float* p, float (&out)[W]) {
-  if constexpr (W % 4 == 0) {
+// (x0, x1) = hi + lo, each a pair of bf16 packed with x0 in the low half: hi
+// rounds (x0, x1), lo rounds what hi leaves (exact in fp32)
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b at ~16-bit accuracy (bf16x3), the small products first.
+// Fragments (g = lane / 4, t = lane % 4; pairs along k, the lower k in the
+// low half): a[0..3] = A(g, 2t..2t+1), A(g+8, 2t..2t+1), A(g, 2t+8..2t+9),
+// A(g+8, 2t+8..2t+9); b0 = B(2t..2t+1, g), b1 = B(2t+8..2t+9, g);
+// d = D(g, 2t), D(g, 2t+1), D(g+8, 2t), D(g+8, 2t+1).
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                     uint32_t bl0, uint32_t bl1) {
+  mma_bf16(d, al, bh0, bh1);
+  mma_bf16(d, ah, bl0, bl1);
+  mma_bf16(d, ah, bh0, bh1);
+}
+
+// Blocks of 64 rows of a row-major operand, NW (16 .. 128) columns wide, move
+// through registers: every load is issued before any is used (so their
+// latencies overlap, and the next block's loads are in flight while this
+// block is computed), then the values go to shared memory.
+//
+// Row pairs, for the operands that are stored split and packed along the
+// rows (the k of their products): element e < 32 V (V = NW / 4) of thread
+// tid + 256 i is row pair e / V, columns 4 (e % V) ..; v[2i], v[2i+1] hold
+// its two rows.
+template <int NW>
+struct Pairs {
+  static constexpr int V = NW / 4;
+  static constexpr int PER = (32 * V + kThreads - 1) / kThreads;
+};
+
+// Rows r0 .. r0+63 (`rows` valid rows `stride` floats apart, W valid
+// columns), zero past both.
+template <int NW>
+__device__ __forceinline__ void load_pairs(float4 (&v)[2 * Pairs<NW>::PER], const float* src,
+                                           size_t stride, int r0, int rows, int W) {
+  constexpr int V = Pairs<NW>::V;
 #pragma unroll
-    for (int k = 0; k < W; k += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + k);
-      out[k] = t.x; out[k + 1] = t.y; out[k + 2] = t.z; out[k + 3] = t.w;
+  for (int i = 0; i < Pairs<NW>::PER; ++i) {
+    const int e = threadIdx.x + i * kThreads, col = (e % V) * 4, q = r0 + 2 * (e / V);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      v[2 * i + k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < 32 * V && q + k < rows && col < W)
+        v[2 * i + k] = __ldg(reinterpret_cast<const float4*>(src + (size_t)(q + k) * stride + col));
     }
-  } else if constexpr (W == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x; out[1] = t.y;
-  } else {
-    out[0] = p[0];
   }
 }
 
-template <int NP, int NN>
-constexpr size_t smem_floats() {
-  return 2 * kMaxQ + 16 + 2 * (size_t)BR * (NN + 4) + (size_t)BR * (NP + 4) + (size_t)BR * LDS;
-}
-
-// Chunk rows r0 .. r0+63 of a (B, S, N) operand (src = its batch row 0 of
-// the chunk) into dst (BR x (NN+4)); zero past the valid rows and past N.
-template <int NN>
-__device__ void stage_bc(float* dst, const float* src, int r0, int rows, int N) {
-  constexpr int LDN = NN + 4;
-  constexpr int V = NN / 4;
-  for (int e = threadIdx.x; e < BR * V; e += kThreads) {
-    const int r = e / V, n = (e % V) * 4;
-    const int q = r0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q < rows && n < N) val = *reinterpret_cast<const float4*>(src + (size_t)q * N + n);
-    *reinterpret_cast<float4*>(dst + r * LDN + n) = val;
-  }
-}
-
-// (x * dt) of chunk rows r0 .. r0+63 into dst (BR x (NP+4)), times
-// exp(clip(cum_end - cum)) when to_end; zero past the valid rows and past P.
-// src is x at (b, first row of the chunk, h); rows are row_stride apart.
-template <int NP>
-__device__ void stage_x(float* dst, const float* src, size_t row_stride, int r0, int rows,
-                        int P, const float* dts, const float* cum, float cum_end, bool to_end) {
-  constexpr int LDP = NP + 4;
-  constexpr int V = NP / 4;
-  for (int e = threadIdx.x; e < BR * V; e += kThreads) {
-    const int r = e / V, p = (e % V) * 4;
-    const int q = r0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q < rows && p < P) {
-      val = *reinterpret_cast<const float4*>(src + (size_t)q * row_stride + p);
-      const float d = dts[q];
-      val.x *= d; val.y *= d; val.z *= d; val.w *= d;
-      if (to_end) {
-        const float w = decay(cum_end - cum[q]);
-        val.x *= w; val.y *= w; val.z *= w; val.w *= w;
-      }
+// The loaded rows, each row q times dts[q] (when dts) and times
+// exp(clip(cum_end - cum[q])) (when cum), split into bf16 high and low parts
+// packed by row pairs: hi and lo are 32 pair rows x ld words.
+template <int NW>
+__device__ __forceinline__ void store_pairs(uint32_t* hi, uint32_t* lo, int ld,
+                                            const float4 (&v)[2 * Pairs<NW>::PER], int r0,
+                                            int rows, const float* dts, const float* cum,
+                                            float cum_end) {
+  constexpr int V = Pairs<NW>::V;
+#pragma unroll
+  for (int i = 0; i < Pairs<NW>::PER; ++i) {
+    const int e = threadIdx.x + i * kThreads, m = e / V, col = (e % V) * 4, q = r0 + 2 * m;
+    if (e >= 32 * V) continue;
+    float4 x[2] = {v[2 * i], v[2 * i + 1]};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (!dts || q + k >= rows) continue;
+      float s = dts[q + k];
+      if (cum) s *= decay(cum_end - cum[q + k]);
+      x[k].x *= s; x[k].y *= s; x[k].z *= s; x[k].w *= s;
     }
-    *reinterpret_cast<float4*>(dst + r * LDP + p) = val;
+    uint4 h, l;
+    split2(x[0].x, x[1].x, h.x, l.x);
+    split2(x[0].y, x[1].y, h.y, l.y);
+    split2(x[0].z, x[1].z, h.z, l.z);
+    split2(x[0].w, x[1].w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + m * ld + col) = h;
+    *reinterpret_cast<uint4*>(lo + m * ld + col) = l;
   }
 }
 
-// Grid (H, nc, B).  Thread (ty, tx) = (tid / 16, tid % 16).  In the C B^T
-// tile it owns rows ty + 16a and columns tx + 16b (a, b < 4); in y_i rows
-// ty + 16a and columns tx*CP .. tx*CP+CP-1; in the state rows ty + 16a
-// (a < NP/16) and columns tx*CN .. tx*CN+CN-1.
-template <int NP, int NN>
-__global__ void __launch_bounds__(kThreads)
-ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                 const float* __restrict__ A, const float* __restrict__ Bm,
-                 const float* __restrict__ Cm, float* __restrict__ y,
-                 float* __restrict__ states, float* __restrict__ in_decay,
-                 float* __restrict__ chunk_decay, int S, int H, int P, int N, int Q) {
-  constexpr int LDN = NN + 4;
-  constexpr int LDP = NP + 4;
-  constexpr int CP = NP / 16;
-  constexpr int CN = NN / 16;
-  constexpr int RP = NP / 16;
-  extern __shared__ float4 sm4[];
-  float* cum = reinterpret_cast<float*>(sm4);  // kMaxQ
-  float* dts = cum + kMaxQ;                    // kMaxQ
-  float* wtot = dts + kMaxQ;                   // 16 (8 used)
-  float* Cs = wtot + 16;                       // BR x LDN
-  float* Bs = Cs + BR * LDN;                   // BR x LDN
-  float* Xs = Bs + BR * LDN;                   // BR x LDP
-  float* Ss = Xs + BR * LDP;                   // BR x LDS
+// A plain fp32 block (rows r0 .. r0+63) for the G product, whose operands
+// are split as they are read: element e = tid + 256 i is row e / V.
+template <int NW>
+struct Block {
+  static constexpr int V = NW / 4;
+  static constexpr int PER = BR * V / kThreads;
+};
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
-  const int s0 = c * Q;                        // the chunk's first sequence row
-  const int rows = min(Q, S - s0);             // its rows inside S
-  const size_t bch = ((size_t)b * gridDim.y + c) * H + h;
-
-  // cum = cumsum(dt * A[h]) over the chunk: one row a thread, zero past S
-  float v = 0.f;
-  dts[tid] = 0.f;
-  if (tid < rows) {
-    const float d = dt[((size_t)b * S + s0 + tid) * H + h];
-    dts[tid] = d;
-    v = d * A[h];
+template <int NW>
+__device__ __forceinline__ void load_block(float4 (&v)[Block<NW>::PER], const float* src,
+                                           size_t stride, int r0, int rows, int W) {
+  constexpr int V = Block<NW>::V;
+#pragma unroll
+  for (int i = 0; i < Block<NW>::PER; ++i) {
+    const int e = threadIdx.x + i * kThreads, col = (e % V) * 4, q = r0 + e / V;
+    v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q < rows && col < W) v[i] = __ldg(reinterpret_cast<const float4*>(src + (size_t)q * stride + col));
   }
+}
+
+template <int NW>
+__device__ __forceinline__ void store_block(float* dst, int ld, const float4 (&v)[Block<NW>::PER]) {
+  constexpr int V = Block<NW>::V;
+#pragma unroll
+  for (int i = 0; i < Block<NW>::PER; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    *reinterpret_cast<float4*>(dst + (e / V) * ld + (e % V) * 4) = v[i];
+  }
+}
+
+// One warp: cum[q] = sum_{r <= q} dt_r A_h and dts[q] = dt_q for the chunk's
+// rows q < kMaxQ (dt = 0 past `rows`).  Lane l sums rows 8l .. 8l+7 in
+// order, then the lanes' totals are scanned.  dtc is dt at (b, s0, h).
+__device__ void scan_head(float* cum, float* dts, const float* dtc, int H, int rows, float a) {
+  const int lane = threadIdx.x & 31;
+  float v[8], run = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int q = lane * 8 + k;
+    const float d = q < rows ? dtc[(size_t)q * H] : 0.f;
+    dts[q] = d;
+    run += d * a;
+    v[k] = run;
+  }
+  float tot = run;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += u;
+    const float u = __shfl_up_sync(0xffffffffu, tot, off);
+    if (lane >= off) tot += u;
   }
-  if (lane == 31) wtot[warp] = v;
-  __syncthreads();
-  for (int w = 0; w < warp; ++w) v += wtot[w];
-  cum[tid] = v;  // rows past the chunk hold cum[rows - 1]: finite, and met only by zeros
-  __syncthreads();
-  const float cum_end = cum[Q - 1];
-  if (tid < Q) in_decay[bch * Q + tid] = decay(v);
-  if (tid == 0) chunk_decay[bch] = decay(cum_end);
+  float excl = __shfl_up_sync(0xffffffffu, tot, 1);
+  if (lane == 0) excl = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) cum[lane * 8 + k] = excl + v[k];
+}
 
-  const float* Cc = Cm + ((size_t)b * S + s0) * N;
-  const float* Bc = Bm + ((size_t)b * S + s0) * N;
-  const size_t xrow = (size_t)H * P;
-  const float* xc = x + ((size_t)b * S + s0) * xrow + (size_t)h * P;
-  const int nblk = (Q + BR - 1) / BR;
+template <int NP, int NN>
+constexpr int y_smem_floats(int nblk) {
+  return BR * (nblk * BR + 8) + 2 * HG * kMaxQ +
+         (2 * BR * (NN + 8) > 4 * 32 * (NP + 8) ? 2 * BR * (NN + 8) : 4 * 32 * (NP + 8));
+}
 
-  // y_intra, one 64-row i-block at a time
-  float* yo = y + bch * Q * P;
-  for (int ib = 0; ib < nblk; ++ib) {
-    float acc[4][CP];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int k = 0; k < CP; ++k) acc[a][k] = 0.f;
-    stage_bc<NN>(Cs, Cc, ib * BR, rows, N);
-    for (int jb = 0; jb <= ib; ++jb) {
-      stage_bc<NN>(Bs, Bc, jb * BR, rows, N);
-      stage_x<NP>(Xs, xc, xrow, jb * BR, rows, P, dts, cum, cum_end, false);
-      __syncthreads();
+template <int NP, int NN>
+constexpr int state_smem_floats(int nblk) {
+  return 2 * nblk * 32 * (NN + 8) + 2 * HS * kMaxQ + 2 * 32 * (NP + 8);
+}
 
-      float g[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) g[a][k] = 0.f;
-#pragma unroll 4
-      for (int n = 0; n < NN; n += 4) {
-        float4 cv[4], bv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) cv[a] = *reinterpret_cast<const float4*>(Cs + (ty + 16 * a) * LDN + n);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) bv[k] = *reinterpret_cast<const float4*>(Bs + (tx + 16 * k) * LDN + n);
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            g[a][k] = fmaf(cv[a].x, bv[k].x, g[a][k]);
-            g[a][k] = fmaf(cv[a].y, bv[k].y, g[a][k]);
-            g[a][k] = fmaf(cv[a].z, bv[k].z, g[a][k]);
-            g[a][k] = fmaf(cv[a].w, bv[k].w, g[a][k]);
-          }
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int i = ib * BR + ty + 16 * a, j = jb * BR + tx + 16 * k;
-          Ss[(ty + 16 * a) * LDS + tx + 16 * k] = (j <= i) ? g[a][k] * decay(cum[i] - cum[j]) : 0.f;
-        }
-      __syncthreads();
+// y_intra of i-block ib for heads h0 .. h0 + HG - 1 (those < H).
+template <int NP, int NN>
+__device__ void y_block(const Args& a, int b, int c, int ib, int h0, float* sm) {
+  constexpr int LDC = NN + 8, LDX = NP + 8, NT = NP / 8;
+  const int nc = (a.S + a.Q - 1) / a.Q;
+  const int hg = min(HG, a.H - h0);
+  const int s0 = c * a.Q, rows = min(a.Q, a.S - s0);
+  const int ldg = (ib + 1) * BR + 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  float* Gs = sm;                           // 64 x ldg: G of this i-block
+  float* cums = Gs + BR * ldg;              // HG x kMaxQ
+  float* dts = cums + HG * kMaxQ;           // HG x kMaxQ
+  float* R = dts + HG * kMaxQ;              // staging
 
+  // the x blocks of the head pairs, each loaded one block ahead of its use:
+  // the first pair's first block now, under the scan and G
+  const size_t xrow = (size_t)a.H * a.P;
+  const float* xc = a.x + ((size_t)b * a.S + s0) * xrow + (size_t)h0 * a.P;
+  float4 xv[2][2 * Pairs<NP>::PER];
+  auto load_x = [&](int hp, int jb) {
+    load_pairs<NP>(xv[0], xc + (size_t)hp * a.P, xrow, jb * BR, rows, a.P);
+    if (hp + 1 < hg) load_pairs<NP>(xv[1], xc + (size_t)(hp + 1) * a.P, xrow, jb * BR, rows, a.P);
+  };
+  load_x(0, 0);
+
+  if (warp < hg)
+    scan_head(cums + warp * kMaxQ, dts + warp * kMaxQ,
+              a.dt + ((size_t)b * a.S + s0) * a.H + h0 + warp, a.H, rows, a.A[h0 + warp]);
+
+  // G = C_i B_j^T for the j-blocks jb <= ib; warp w owns rows 16 (w % 4) ..
+  // and columns 32 (w / 4) .. of each 64 x 64 block
+  float* Cs = R;
+  float* Bs = R + BR * LDC;
+  const float* Cc = a.Cm + ((size_t)b * a.S + s0) * a.N;
+  const float* Bc = a.Bm + ((size_t)b * a.S + s0) * a.N;
+  {
+    float4 cv[Block<NN>::PER];
+    load_block<NN>(cv, Cc, a.N, ib * BR, rows, a.N);
+    store_block<NN>(Cs, LDC, cv);
+  }
+  float4 bv[Block<NN>::PER];
+  load_block<NN>(bv, Bc, a.N, 0, rows, a.N);
+  const int gr = 16 * (warp & 3), gc = 32 * (warp >> 2);
+  for (int jb = 0; jb <= ib; ++jb) {
+    store_block<NN>(Bs, LDC, bv);
+    __syncthreads();
+    if (jb < ib) load_block<NN>(bv, Bc, a.N, (jb + 1) * BR, rows, a.N);
+    float acc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 #pragma unroll 2
-      for (int jj = 0; jj < BR; jj += 4) {
-        float4 sv[4];
+    for (int k0 = 0; k0 < NN; k0 += 16) {
+      uint32_t ah[4], al[4];
+      const float* cp = Cs + (gr + g) * LDC + k0 + 2 * t;
+      const float2 c0 = *reinterpret_cast<const float2*>(cp);
+      const float2 c1 = *reinterpret_cast<const float2*>(cp + 8 * LDC);
+      const float2 c2 = *reinterpret_cast<const float2*>(cp + 8);
+      const float2 c3 = *reinterpret_cast<const float2*>(cp + 8 * LDC + 8);
+      split2(c0.x, c0.y, ah[0], al[0]);
+      split2(c1.x, c1.y, ah[1], al[1]);
+      split2(c2.x, c2.y, ah[2], al[2]);
+      split2(c3.x, c3.y, ah[3], al[3]);
 #pragma unroll
-        for (int a = 0; a < 4; ++a) sv[a] = *reinterpret_cast<const float4*>(Ss + (ty + 16 * a) * LDS + jj);
+      for (int n = 0; n < 4; ++n) {
+        const float* bp = Bs + (gc + 8 * n + g) * LDC + k0 + 2 * t;
+        const float2 b0 = *reinterpret_cast<const float2*>(bp);
+        const float2 b1 = *reinterpret_cast<const float2*>(bp + 8);
+        uint32_t bh0, bl0, bh1, bl1;
+        split2(b0.x, b0.y, bh0, bl0);
+        split2(b1.x, b1.y, bh1, bl1);
+        mma3(acc[n], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          float xv[CP];
-          load_row<CP>(Xs + (jj + k) * LDP + tx * CP, xv);
+    for (int n = 0; n < 4; ++n) {
+      float* gp = Gs + (gr + g) * ldg + jb * BR + gc + 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(gp) = make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(gp + 8 * ldg) = make_float2(acc[n][2], acc[n][3]);
+    }
+    __syncthreads();  // Bs free; after the last block G is whole
+  }
+
+  // the heads, two at a time: warp quad `quad` takes head hp + quad, its
+  // warp w % 4 the 16 rows 16 (w % 4) .. of the i-block and all P columns
+  const int quad = warp >> 2;
+  const int il = 16 * (warp & 3) + g;       // local rows il and il + 8
+  const int i0 = ib * BR + il, i1 = i0 + 8;
+  uint32_t* X = reinterpret_cast<uint32_t*>(R);   // [quad][hi, lo][32 row pairs][LDX]
+  const uint32_t* Xh = X + quad * 2 * 32 * LDX;
+  const uint32_t* Xl = Xh + 32 * LDX;
+  for (int hp = 0; hp < hg; hp += 2) {
+    const int hl = hp + quad;
+    const bool active = hl < hg;
+    const float* cum = cums + (active ? hl : hp) * kMaxQ;
+    const float ci0 = cum[i0], ci1 = cum[i1];
+    float acc[NT][4];
 #pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const float s = comp(sv[a], k);
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-            for (int e = 0; e < CP; ++e) acc[a][e] = fmaf(s, xv[e], acc[a][e]);
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    for (int jb = 0; jb <= ib; ++jb) {
+      store_pairs<NP>(X, X + 32 * LDX, LDX, xv[0], jb * BR, rows, dts + hp * kMaxQ, nullptr, 0.f);
+      if (hp + 1 < hg)
+        store_pairs<NP>(X + 64 * LDX, X + 96 * LDX, LDX, xv[1], jb * BR, rows,
+                        dts + (hp + 1) * kMaxQ, nullptr, 0.f);
+      __syncthreads();
+      if (jb < ib) load_x(hp, jb + 1);
+      else if (hp + 2 < hg) load_x(hp + 2, 0);
+      if (active) {
+        const bool diag = jb == ib;
+#pragma unroll 2
+        for (int kk = 0; kk < BR; kk += 16) {
+          // A = (G o L) at rows i0, i1 and columns j, j+1, j+8, j+9
+          const int j = jb * BR + kk + 2 * t;
+          const float2 cj0 = *reinterpret_cast<const float2*>(cum + j);
+          const float2 cj8 = *reinterpret_cast<const float2*>(cum + j + 8);
+          const float* gp = Gs + il * ldg + j;
+          float2 r0 = *reinterpret_cast<const float2*>(gp);
+          float2 r1 = *reinterpret_cast<const float2*>(gp + 8 * ldg);
+          float2 r2 = *reinterpret_cast<const float2*>(gp + 8);
+          float2 r3 = *reinterpret_cast<const float2*>(gp + 8 * ldg + 8);
+          r0.x *= decay(ci0 - cj0.x); r0.y *= decay(ci0 - cj0.y);
+          r1.x *= decay(ci1 - cj0.x); r1.y *= decay(ci1 - cj0.y);
+          r2.x *= decay(ci0 - cj8.x); r2.y *= decay(ci0 - cj8.y);
+          r3.x *= decay(ci1 - cj8.x); r3.y *= decay(ci1 - cj8.y);
+          if (diag) {                      // the mask, after the exp
+            if (j > i0) r0.x = 0.f;
+            if (j + 1 > i0) r0.y = 0.f;
+            if (j > i1) r1.x = 0.f;
+            if (j + 1 > i1) r1.y = 0.f;
+            if (j + 8 > i0) r2.x = 0.f;
+            if (j + 9 > i0) r2.y = 0.f;
+            if (j + 8 > i1) r3.x = 0.f;
+            if (j + 9 > i1) r3.y = 0.f;
+          }
+          uint32_t ah[4], al[4];
+          split2(r0.x, r0.y, ah[0], al[0]);
+          split2(r1.x, r1.y, ah[1], al[1]);
+          split2(r2.x, r2.y, ah[2], al[2]);
+          split2(r3.x, r3.y, ah[3], al[3]);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const int o = (kk / 2 + t) * LDX + 8 * n + g;
+            mma3(acc[n], ah, al, Xh[o], Xh[o + 4 * LDX], Xl[o], Xl[o + 4 * LDX]);
           }
         }
       }
-      __syncthreads();  // Bs, Xs, Ss (and Cs after the last j-block) are free again
+      __syncthreads();  // the staged blocks are free again
     }
+    if (active) {
+      float* yo = a.y + (((size_t)b * nc + c) * a.H + h0 + hl) * a.Q * a.P;
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ib * BR + ty + 16 * a;
-      if (i >= Q) continue;
-#pragma unroll
-      for (int e = 0; e < CP; ++e) {
-        const int p = tx * CP + e;
-        if (p < P) yo[(size_t)i * P + p] = acc[a][e];
+      for (int n = 0; n < NT; ++n) {
+        const int p = 8 * n + 2 * t;      // P is a multiple of 4: p < P means p + 1 < P
+        if (p >= a.P) continue;
+        if (i0 < a.Q)
+          *reinterpret_cast<float2*>(yo + (size_t)i0 * a.P + p) = make_float2(acc[n][0], acc[n][1]);
+        if (i1 < a.Q)
+          *reinterpret_cast<float2*>(yo + (size_t)i1 * a.P + p) = make_float2(acc[n][2], acc[n][3]);
       }
     }
+  }
+}
+
+// The chunk states of heads h0 .. h0 + HS - 1 (those < H), and their
+// in_decay and chunk_decay.  Warp w owns rows 16 (w % RS) .. of P and CT
+// column tiles of 8 from (w / RS) CT.
+template <int NP, int NN>
+__device__ void state_block(const Args& a, int b, int c, int h0, float* sm) {
+  constexpr int LDB = NN + 8, LDX = NP + 8;
+  constexpr int RS = NP / 16, CS = 8 / RS, NTT = NN / 8;
+  constexpr int CT = NTT / CS > 0 ? NTT / CS : 1;
+  const int nc = (a.S + a.Q - 1) / a.Q, nblk = (a.Q + BR - 1) / BR;
+  const int hs = min(HS, a.H - h0);
+  const int s0 = c * a.Q, rows = min(a.Q, a.S - s0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  uint32_t* Bh = reinterpret_cast<uint32_t*>(sm);   // nblk * 32 row pairs x LDB: B, split
+  uint32_t* Bl = Bh + nblk * 32 * LDB;
+  float* cums = reinterpret_cast<float*>(Bl + nblk * 32 * LDB);   // HS x kMaxQ
+  float* dts = cums + HS * kMaxQ;                                 // HS x kMaxQ
+  uint32_t* Xh = reinterpret_cast<uint32_t*>(dts + HS * kMaxQ);   // 32 x LDX
+  uint32_t* Xl = Xh + 32 * LDX;
+
+  // x blocks, each loaded one block ahead of its use: the first one now
+  const size_t xrow = (size_t)a.H * a.P;
+  const float* xc = a.x + ((size_t)b * a.S + s0) * xrow + (size_t)h0 * a.P;
+  float4 xv[2 * Pairs<NP>::PER];
+  load_pairs<NP>(xv, xc, xrow, 0, rows, a.P);
+
+  if (warp < hs)
+    scan_head(cums + warp * kMaxQ, dts + warp * kMaxQ,
+              a.dt + ((size_t)b * a.S + s0) * a.H + h0 + warp, a.H, rows, a.A[h0 + warp]);
+  const float* Bc = a.Bm + ((size_t)b * a.S + s0) * a.N;
+  for (int jb = 0; jb < nblk; ++jb) {
+    float4 bv[2 * Pairs<NN>::PER];
+    load_pairs<NN>(bv, Bc, a.N, jb * BR, rows, a.N);
+    store_pairs<NN>(Bh + jb * 32 * LDB, Bl + jb * 32 * LDB, LDB, bv, jb * BR, rows, nullptr,
+                    nullptr, 0.f);
+  }
+  __syncthreads();
+  const size_t bch0 = ((size_t)b * nc + c) * a.H + h0;
+  for (int e = threadIdx.x; e < hs * a.Q; e += kThreads) {
+    const int hl = e / a.Q, q = e % a.Q;
+    a.in_decay[(bch0 + hl) * a.Q + q] = decay(cums[hl * kMaxQ + q]);
+    if (q == 0) a.chunk_decay[bch0 + hl] = decay(cums[hl * kMaxQ + a.Q - 1]);
   }
 
-  // the chunk's outgoing state, sum_j (x dt exp(clip(cum_end - cum)))_j^T B_j
-  float st[RP][CN];
+  const int rs = warp % RS, cg = warp / RS;
+  const bool active = cg * CT < NTT;
+  for (int hl = 0; hl < hs; ++hl) {
+    const float* cum = cums + hl * kMaxQ;
+    const float cum_end = cum[a.Q - 1];
+    float acc[CT][4];
 #pragma unroll
-  for (int a = 0; a < RP; ++a)
+    for (int n = 0; n < CT; ++n)
 #pragma unroll
-    for (int e = 0; e < CN; ++e) st[a][e] = 0.f;
-  for (int jb = 0; jb < nblk; ++jb) {
-    stage_bc<NN>(Bs, Bc, jb * BR, rows, N);
-    stage_x<NP>(Xs, xc, xrow, jb * BR, rows, P, dts, cum, cum_end, true);
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < BR; ++r) {
-      float bv[CN];
-      load_row<CN>(Bs + r * LDN + tx * CN, bv);
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    for (int jb = 0; jb < nblk; ++jb) {
+      store_pairs<NP>(Xh, Xl, LDX, xv, jb * BR, rows, dts + hl * kMaxQ, cum, cum_end);
+      __syncthreads();
+      if (jb + 1 < nblk) load_pairs<NP>(xv, xc + (size_t)hl * a.P, xrow, (jb + 1) * BR, rows, a.P);
+      else if (hl + 1 < hs) load_pairs<NP>(xv, xc + (size_t)(hl + 1) * a.P, xrow, 0, rows, a.P);
+      if (active) {
+#pragma unroll 2
+        for (int kk = 0; kk < BR; kk += 16) {
+          // A = (x dt decay_end)^T: element (p, j) lies at row pair j / 2, column p
+          const int o = (kk / 2 + t) * LDX + 16 * rs + g;
+          const uint32_t ah[4] = {Xh[o], Xh[o + 8], Xh[o + 4 * LDX], Xh[o + 4 * LDX + 8]};
+          const uint32_t al[4] = {Xl[o], Xl[o + 8], Xl[o + 4 * LDX], Xl[o + 4 * LDX + 8]};
 #pragma unroll
-      for (int a = 0; a < RP; ++a) {
-        const float xv = Xs[r * LDP + ty + 16 * a];
+          for (int n = 0; n < CT; ++n) {
+            const int ob = (jb * 32 + kk / 2 + t) * LDB + (cg * CT + n) * 8 + g;
+            mma3(acc[n], ah, al, Bh[ob], Bh[ob + 4 * LDB], Bl[ob], Bl[ob + 4 * LDB]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (active) {
+      float* so = a.states + (bch0 + hl) * a.P * a.N;
+      const int p0 = 16 * rs + g, p1 = p0 + 8;
 #pragma unroll
-        for (int e = 0; e < CN; ++e) st[a][e] = fmaf(xv, bv[e], st[a][e]);
+      for (int n = 0; n < CT; ++n) {
+        const int col = (cg * CT + n) * 8 + 2 * t;   // N is a multiple of 4
+        if (col >= a.N) continue;
+        if (p0 < a.P)
+          *reinterpret_cast<float2*>(so + (size_t)p0 * a.N + col) = make_float2(acc[n][0], acc[n][1]);
+        if (p1 < a.P)
+          *reinterpret_cast<float2*>(so + (size_t)p1 * a.N + col) = make_float2(acc[n][2], acc[n][3]);
       }
     }
-    __syncthreads();
   }
-  float* so = states + bch * P * N;
-#pragma unroll
-  for (int a = 0; a < RP; ++a) {
-    const int p = ty + 16 * a;
-    if (p >= P) continue;
-#pragma unroll
-    for (int e = 0; e < CN; ++e) {
-      const int n = tx * CN + e;
-      if (n < N) so[(size_t)p * N + n] = st[a][e];
+}
+
+// Grid: every y CTA (nblk i-blocks x B x nc x ceil(H / HG)) and every state
+// CTA (B x nc x ceil(H / HS)), heaviest first (see the header).
+template <int NP, int NN>
+__global__ void __launch_bounds__(kThreads) ssd_chunk_kernel(const Args a) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int nc = (a.S + a.Q - 1) / a.Q, nblk = (a.Q + BR - 1) / BR;
+  const int gy = (a.H + HG - 1) / HG, gs = (a.H + HS - 1) / HS;
+  const int per_ib = a.B * nc * gy, n_state = a.B * nc * gs;
+  int item = blockIdx.x, ib = nblk - 1;
+  if (item >= per_ib) {
+    item -= per_ib;
+    if (item < n_state) {
+      state_block<NP, NN>(a, item / (nc * gs), (item / gs) % nc, (item % gs) * HS, sm);
+      return;
     }
+    item -= n_state;
+    ib = nblk - 2 - item / per_ib;
+    item %= per_ib;
   }
+  y_block<NP, NN>(a, item / (nc * gy), (item / gy) % nc, ib, (item % gy) * HG, sm);
 }
 
 // Opt the kernel in to the largest dynamic shared memory a block may use, once
@@ -304,21 +528,16 @@ cudaError_t allow_smem() {
   return err;
 }
 
-struct Args {
-  const float *x, *dt, *A, *Bm, *Cm;
-  float *y, *states, *in_decay, *chunk_decay;
-  int B, S, H, P, N, Q;
-  cudaStream_t stream;
-};
-
 template <int NP, int NN>
-cudaError_t launch(const Args& a) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int nc = (a.S + a.Q - 1) / a.Q, nblk = (a.Q + BR - 1) / BR;
+  const int ys = y_smem_floats<NP, NN>(nblk), ss = state_smem_floats<NP, NN>(nblk);
+  const size_t smem = (size_t)(ys > ss ? ys : ss) * sizeof(float);
+  if (smem > (size_t)kSmemPerBlock) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem<ssd_chunk_kernel<NP, NN>>();
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.H, (a.S + a.Q - 1) / a.Q, a.B);
-  ssd_chunk_kernel<NP, NN><<<grid, kThreads, smem_floats<NP, NN>() * sizeof(float), a.stream>>>(
-      a.x, a.dt, a.A, a.Bm, a.Cm, a.y, a.states, a.in_decay, a.chunk_decay, a.S, a.H, a.P, a.N,
-      a.Q);
+  const int ctas = a.B * nc * (nblk * ((a.H + HG - 1) / HG) + (a.H + HS - 1) / HS);
+  ssd_chunk_kernel<NP, NN><<<ctas, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -326,12 +545,12 @@ cudaError_t launch(const Args& a) {
 constexpr int width(int d) { return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128; }
 
 template <int NP>
-cudaError_t launch_n(const Args& a) {
+cudaError_t launch_n(const Args& a, cudaStream_t stream) {
   switch (width(a.N)) {
-    case 16: return launch<NP, 16>(a);
-    case 32: return launch<NP, 32>(a);
-    case 64: return launch<NP, 64>(a);
-    default: return launch<NP, 128>(a);
+    case 16: return launch<NP, 16>(a, stream);
+    case 32: return launch<NP, 32>(a, stream);
+    case 64: return launch<NP, 64>(a, stream);
+    default: return launch<NP, 128>(a, stream);
   }
 }
 
@@ -350,12 +569,12 @@ extern "C" int ssd_chunk_launch(const void* x, const void* dt, const void* A, co
                static_cast<const float*>(A), static_cast<const float*>(Bm),
                static_cast<const float*>(Cm), static_cast<float*>(y),
                static_cast<float*>(states), static_cast<float*>(in_decay),
-               static_cast<float*>(chunk_decay), B, S, H, P, N, Q,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(chunk_decay), B, S, H, P, N, Q};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (width(P)) {
-    case 16: return launch_n<16>(a);
-    case 32: return launch_n<32>(a);
-    case 64: return launch_n<64>(a);
-    default: return launch_n<128>(a);
+    case 16: return launch_n<16>(a, s);
+    case 32: return launch_n<32>(a, s);
+    case 64: return launch_n<64>(a, s);
+    default: return launch_n<128>(a, s);
   }
 }

@@ -11,8 +11,11 @@ the ring is filled round-robin.
 
 The route follows from dtype and M alone (``route``): ``"wgmma"`` for bf16
 with M > 64 (prefill: TMA ring feeding wgmma), ``"decode"`` for bf16 with
-M <= 64 (cp.async ring, mma.sync) and ``"fp32"`` for float32 (cp.async ring,
-FFMA).  ``ltrf_matmul.launches`` counts the launches and
+M <= 64 (the product swapped so the weight is wgmma's A operand, K split over
+``split_k`` CTAs a tile, TMA ring, fp32 partials summed in a fixed order
+inside a thread block cluster, or past 8 slices by the last CTA of each tile)
+and ``"fp32"`` for float32 (cp.async ring, FFMA).
+``ltrf_matmul.launches`` counts the launches and
 ``ltrf_matmul.launches_by_route`` counts them per route.
 """
 from __future__ import annotations
@@ -27,8 +30,23 @@ from .. import _build
 from .ref import matmul_ref
 
 SMEM_PER_CTA = 232_448   # H100: dynamic shared memory one block may use
+SMEM_PER_SM = 233_472    # H100: shared memory of an SM (1 KB of it kept per CTA)
 NUM_SMS = 132            # H100 SXM
 MAX_STAGES = 6
+# decode route: 32 K rows x 64 columns of weight a stage; up to 12 stages
+# (48 KB of weight in flight a CTA) when one CTA streams all of K, 8 when K
+# is split, fewer where the last wave of CTAs would be less than half full
+# (pick_blocks); the K split sized so every
+# shape has at least NUM_SMS CTAs; the split's fp32 partials need at most
+# 2 * NUM_SMS tiles of 64 x 64 floats (a split > 1 only when the tiles are
+# fewer than NUM_SMS)
+DECODE_BK, DECODE_BN, DECODE_MAX_STAGES = 32, 64, (12, 8)
+DECODE_RESERVE = 2 * 1024 + 16    # a CTA's 1024-byte alignment, the SM's 1 KB, a flag
+# a split of up to 8 slices is reduced inside a thread block cluster (slice
+# 0's shared memory gathers the others' fp32 partials); a larger one through
+# the workspace
+DECODE_MAX_CLUSTER = 8
+WORKSPACE_CTAS = 2 * NUM_SMS
 # wgmma route: shared memory kept beside the ring -- the 1024-byte alignment of
 # the swizzled tiles, the consumers' output staging (2 x 64 x 128 bf16) and
 # the ring's full and empty mbarriers
@@ -66,6 +84,55 @@ def _wgmma_bn(M: int, N: int) -> int:
     return min((256, 128), key=cost)
 
 
+def _decode_rows(M: int) -> int:
+    """The decode route's padded row count: wgmma's N of 8, 16, 32 or 64."""
+    return next(mp for mp in (8, 16, 32, 64) if M <= mp)
+
+
+def decode_stage_bytes(bm: int) -> int:
+    """Shared memory of one decode stage as the kernel lays it out: the 4 KB
+    weight box, the x box (at least 1 KB: it starts 1024-byte aligned) and
+    the stage's two mbarriers."""
+    return DECODE_BK * DECODE_BN * 2 + max(1024, bm * DECODE_BK * 2) + 16
+
+
+def decode_gather_bytes(bm: int, split: int) -> int:
+    """Slice 0's slots for the other slices' fp32 partials (a clustered split)."""
+    return (split - 1) * DECODE_BN * bm * 4 if 1 < split <= DECODE_MAX_CLUSTER else 0
+
+
+def split_k(M: int, K: int, N: int, dtype_bytes: int = 2) -> int:
+    """The number of K slices (CTAs) per 64-column output tile.
+
+    Decode (bf16, M <= 64) is bound by the weight bytes, which must be in
+    flight on every SM: when the ceil(N / 64) tiles are fewer than NUM_SMS,
+    K is split so that tiles x split >= NUM_SMS, up to one 32-row K block a
+    CTA.  Tiles that cover the card once but not twice are split in two, so
+    that no SM streams two whole tiles while others stream one (mamba2-1.3b's
+    in_proj has 133).  Every other route takes 1.
+    """
+    if route(M, dtype_bytes) != "decode":
+        return 1
+    tiles, n_kb = -(-N // DECODE_BN), -(-K // DECODE_BK)
+    if tiles >= 2 * NUM_SMS:
+        return 1
+    return min(n_kb, max(2, -(-NUM_SMS // tiles)))
+
+
+def _decode_stages(bm: int, split: int, blocks: int, tiles: int) -> int:
+    """The decode ring's depth: as deep as the slice (``blocks`` stages) and
+    DECODE_MAX_STAGES allow, but no deeper than keeps the launch's last wave
+    of CTAs at least half full, or the launch in one wave (shared memory sets
+    how many CTAs an SM holds)."""
+    ctas = tiles * split
+    for stages in range(min(DECODE_MAX_STAGES[split > 1], blocks), 2, -1):
+        per_cta = DECODE_RESERVE + decode_gather_bytes(bm, split) + stages * decode_stage_bytes(bm)
+        slots = NUM_SMS * (SMEM_PER_SM // per_cta)
+        if ctas <= slots or ctas % slots == 0 or 2 * (ctas % slots) >= slots:
+            return stages
+    return 2
+
+
 def pick_blocks(M: int, K: int, N: int,
                 dtype_bytes: int = 2) -> tuple[int, int, int, int]:
     """(bm, bk, bn, stages) for one CTA of the kernel.
@@ -73,11 +140,16 @@ def pick_blocks(M: int, K: int, N: int,
     wgmma (bf16, M > 64): 128 x 128 or 128 x 256 output tiles (``_wgmma_bn``)
     fed 64 deep; the ring takes as many stages (up to MAX_STAGES) as fit in one
     CTA's shared memory beside ``WGMMA_RESERVE``, one CTA an SM.
-    Decode (M <= 64): one M-tile covers every row, so each weight byte is read
-    from HBM once; narrow 32-column tiles give more CTAs to stream weights.
-    fp32 with M > 64: 128 x 128 output tiles fed 32 deep.  The cp.async
-    routes take as many stages (2..MAX_STAGES) as fit in half of
-    ``SMEM_PER_CTA``, so two CTAs can share an SM.
+    Decode (bf16, M <= 64): one M-tile of M rows padded to 8, 16, 32 or 64
+    covers every row, so each weight byte is read from HBM once; 64 output
+    columns a CTA, 32 K rows a stage, and as many stages as the CTA's K slice
+    has blocks, up to DECODE_MAX_STAGES (12 unsplit, 8 split), fewer where
+    the CTAs that shared memory lets an SM hold would leave a last wave of
+    CTAs less than half full (its SMs would stream alone, the others idle).
+    fp32: 128 x 128 output tiles fed 32 deep (M > 64) or one M-tile of 16,
+    32 or 64 rows by 32 columns fed 64 deep (M <= 64), with as many stages
+    (2..MAX_STAGES) as fit in half of ``SMEM_PER_CTA``, so two CTAs can share
+    an SM.
     """
     kind = route(M, dtype_bytes)
     if kind == "wgmma":
@@ -86,9 +158,13 @@ def pick_blocks(M: int, K: int, N: int,
         stages = min(MAX_STAGES, (SMEM_PER_CTA - WGMMA_RESERVE) // per_stage)
         assert stages >= 2
         return bm, bk, bn, stages
+    if kind == "decode":
+        bm, split = _decode_rows(M), split_k(M, K, N, dtype_bytes)
+        blocks = -(-(-(-K // DECODE_BK)) // split)
+        return bm, DECODE_BK, DECODE_BN, _decode_stages(bm, split, blocks, -(-N // DECODE_BN))
     if M <= 64:
         bm = 16 if M <= 16 else 32 if M <= 32 else 64
-        bk, bn = (128 if dtype_bytes == 2 else 64), 32
+        bk, bn = 64, 32
     else:
         bm, bk, bn = 128, 32, 128
     per_stage = stage_bytes(bm, bk, bn, dtype_bytes)
@@ -102,28 +178,48 @@ def matmul_plan(M: int, K: int, N: int, dtype_bytes: int = 2
                 ) -> tuple[IntervalPlan, tuple[int, int, int]]:
     """The validated per-CTA IntervalPlan of this matmul's weight stream.
 
-    One CTA streams its column of ceil(K / bk) weight tiles (bk x bn) through
-    a ring of ``stages`` shared-memory slots (``pick_blocks`` sets the depth);
-    the plan's budget is that CTA's dynamic shared memory and its
-    ``num_slots`` is that depth, which the kernel is launched with.  Planning the whole matrix instead would be a
-    plan of every CTA's stream at once, which costs seconds per shape.
-    Memoized per shape and dtype.
+    One CTA streams its column of weight tiles (bk x bn) -- all ceil(K / bk)
+    of them, or on the decode route the longest of its ``split_k`` K slices
+    -- through a ring of ``stages`` shared-memory slots (``pick_blocks`` sets
+    the depth); the plan's budget is that CTA's ring and its ``num_slots`` is
+    that depth, which the kernel is launched with.  Planning the whole matrix
+    instead would be a plan of every CTA's stream at once, which costs
+    seconds per shape.  Memoized per shape and dtype, which fix the split.
     """
     bm, bk, bn, stages = pick_blocks(M, K, N, dtype_bytes)
-    per_stage = stage_bytes(bm, bk, bn, dtype_bytes,
-                            swizzled=route(M, dtype_bytes) == "wgmma")
-    plan = plan_for_matmul(M, K, bn, bk, bn, vmem_budget=stages * per_stage,
+    kind = route(M, dtype_bytes)
+    per_stage = stage_bytes(bm, bk, bn, dtype_bytes, swizzled=kind != "fp32")
+    k_slice = -(-(-(-K // bk)) // split_k(M, K, N, dtype_bytes)) * bk
+    plan = plan_for_matmul(M, min(K, k_slice), bn, bk, bn, vmem_budget=stages * per_stage,
                            num_slots=stages, dtype_bytes=dtype_bytes)
     plan.validate()
     return plan, (bm, bk, bn)
+
+
+_WORKSPACES: dict = {}
+
+
+def _workspace(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decode route's workspace for splits of more than DECODE_MAX_CLUSTER
+    slices on ``device``: fp32 partials for WORKSPACE_CTAS tiles of 64 x 64
+    and NUM_SMS int32 counters, zeroed once;
+    the kernel leaves every counter at 0 again.  One per device, made
+    outside any CUDA graph capture by the first launch there; launches that
+    share it are ordered on one stream."""
+    ws = _WORKSPACES.get(device)
+    if ws is None:
+        ws = _WORKSPACES[device] = (
+            torch.empty(WORKSPACE_CTAS * DECODE_BN * 64, dtype=torch.float32, device=device),
+            torch.zeros(NUM_SMS, dtype=torch.int32, device=device))
+    return ws
 
 
 def _library():
     lib = _build.load("ltrf_matmul")
     fn = lib.ltrf_matmul_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
     return fn
 
@@ -150,11 +246,18 @@ def ltrf_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             f"ltrf_matmul: needs M > 0, K and N multiples of {ch} and 16-byte "
             f"aligned operands; got M, K, N = {M}, {K}, {N}")
     plan, (bm, bk, bn) = matmul_plan(M, K, N, x.element_size())
+    split = split_k(M, K, N, x.element_size())
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    partials = counters = None
+    if split > DECODE_MAX_CLUSTER:
+        partials, counters = _workspace(x.device)
+        assert -(-N // bn) * split <= WORKSPACE_CTAS and -(-N // bn) <= counters.numel()
     launch = _library()
     with torch.cuda.device(x.device):
         err = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N,
-                     _DTYPES[x.dtype], bm, bk, bn, plan.num_slots,
+                     _DTYPES[x.dtype], bm, bk, bn, plan.num_slots, split,
+                     partials.data_ptr() if partials is not None else None,
+                     counters.data_ptr() if counters is not None else None,
                      torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ltrf_matmul kernel launch failed: cudaError {err}")
@@ -166,4 +269,4 @@ def ltrf_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 ltrf_matmul.launches = 0
 ltrf_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
 
-__all__ = ["ltrf_matmul", "matmul_plan", "matmul_ref", "pick_blocks"]
+__all__ = ["ltrf_matmul", "matmul_plan", "matmul_ref", "pick_blocks", "split_k"]

@@ -88,6 +88,36 @@ def test_ltrf_matmul_wgmma_route_edges(dev, M, K, N):
     torch.testing.assert_close(got.float(), matmul_ref(x, w).float(), **TOL[torch.bfloat16])
 
 
+@pytest.mark.parametrize("N", [8, 264, 2048, 50280])
+@pytest.mark.parametrize("K", [136, 2048, 5632])
+@pytest.mark.parametrize("M", [1, 7, 8, 9, 16, 33, 64])
+def test_ltrf_matmul_decode_route_edges(dev, M, K, N):
+    """bf16 with M <= 64 takes the decode route: rows padded to 8-64, K ragged
+    against the 32-row stages and split over up to 132 CTAs a tile, N
+    ragged against the 64-column tiles (and narrower than one)."""
+    g = torch.Generator(dev).manual_seed(4)
+    x = torch.randn(M, K, device=dev, generator=g).bfloat16()
+    w = (torch.randn(K, N, device=dev, generator=g) / K ** 0.5).bfloat16()
+    before = dict(ltrf_matmul.launches_by_route)
+    got = ltrf_matmul(x, w)
+    torch.cuda.synchronize()
+    assert ltrf_matmul.launches_by_route == {**before, "decode": before["decode"] + 1}
+    torch.testing.assert_close(got.float(), matmul_ref(x, w).float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("shape", [(8, 2048, 256), (8, 2048, 2048), (8, 5632, 2048), (3, 136, 8)])
+def test_ltrf_matmul_decode_is_deterministic(dev, shape):
+    """The split-K partials are summed in a fixed order by the last CTA of
+    each tile: two launches on the same inputs give the same bits."""
+    M, K, N = shape
+    g = torch.Generator(dev).manual_seed(5)
+    x = torch.randn(M, K, device=dev, generator=g).bfloat16()
+    w = (torch.randn(K, N, device=dev, generator=g) / K ** 0.5).bfloat16()
+    first = ltrf_matmul(x, w)
+    for _ in range(3):
+        assert torch.equal(ltrf_matmul(x, w), first)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("heads", [(4, 4), (4, 2), (4, 1)], ids=["mha", "gqa", "mqa"])
 @pytest.mark.parametrize("S", [1, 63, 65, 1000, 1024])
@@ -165,6 +195,19 @@ def test_ssd_chunk_matches_plain(dev, shape):
     want = ssd_chunk_ref(*ins, Q)
     assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
     assert _ssd_within(got, want)
+
+
+@pytest.mark.parametrize("N", [16, 64, 128])
+@pytest.mark.parametrize("Q", [64, 96, 256])
+@pytest.mark.parametrize("H", [1, 3, 64])
+def test_ssd_chunk_head_groups_and_ragged_s(dev, H, Q, N):
+    """H not a multiple of the kernel's head groups (8 for y, 4 for states),
+    Q not a multiple of its 64-row blocks, S ragged against Q."""
+    S = 2 * Q + 37
+    ins = _ssd_inputs(1, S, H, 64, N, dev, seed=H + Q + N)
+    got = ssd_chunk(*ins, Q)
+    torch.cuda.synchronize()
+    assert _ssd_within(got, ssd_chunk_ref(*ins, Q))
 
 
 def test_ssd_check_catches_a_zeroed_block(dev):

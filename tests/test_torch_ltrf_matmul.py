@@ -11,10 +11,12 @@ from repro.kernels.ltrf_matmul.ops import ltrf_matmul as jax_ltrf_matmul  # noqa
 from repro.kernels.ltrf_matmul.ref import matmul_ref as jax_matmul_ref  # noqa: E402
 from repro_torch.core import plan as tplan  # noqa: E402
 from repro_torch.kernels.ltrf_matmul import (  # noqa: E402
-    ltrf_matmul, matmul_plan, matmul_ref, pick_blocks,
+    ltrf_matmul, matmul_plan, matmul_ref, pick_blocks, split_k,
 )
 from repro_torch.kernels.ltrf_matmul.ops import (  # noqa: E402
-    ROUTES, SMEM_PER_CTA, WGMMA_RESERVE, route, stage_bytes,
+    DECODE_BK, DECODE_BN, DECODE_MAX_CLUSTER, DECODE_MAX_STAGES, DECODE_RESERVE, NUM_SMS, ROUTES, SMEM_PER_CTA,
+    SMEM_PER_SM, WGMMA_RESERVE, WORKSPACE_CTAS, decode_gather_bytes, decode_stage_bytes, route,
+    stage_bytes,
 )
 
 # test_kernels.py:27-28, plus decode-like shapes (M = 8 rows)
@@ -88,10 +90,11 @@ def test_per_cta_plan_validates(M, kn):
     plan.validate()
     _, _, _, stages = pick_blocks(M, K, N, 2)
     assert plan.num_slots == stages
-    swizzled = route(M, 2) == "wgmma"      # M = 2048: unpadded, swizzled stages
-    assert plan.vmem_budget == stages * stage_bytes(bm, bk, bn, 2, swizzled) <= SMEM_PER_CTA
-    # the plan covers exactly one CTA's column of weight tiles
-    assert sum(len(p.tiles) for p in plan.prefetches) >= -(-K // bk)
+    # both bf16 routes load unpadded, swizzled TMA boxes
+    assert plan.vmem_budget == stages * stage_bytes(bm, bk, bn, 2, swizzled=True) <= SMEM_PER_CTA
+    # the plan covers one CTA's column of weight tiles: all of K, or on the
+    # decode route the longest of its K slices
+    assert sum(len(p.tiles) for p in plan.prefetches) >= -(-(-(-K // bk)) // split_k(M, K, N))
     assert matmul_plan(M, K, N, 2) is matmul_plan(M, K, N, 2)  # memoized
 
 
@@ -105,7 +108,13 @@ def test_pick_blocks_fits_shared_memory(shape, dtype_bytes):
     assert SMEM_PER_CTA == 232_448
     if M <= 64:
         assert bm >= M  # decode: one M-tile covers every row
-    assert bm % 16 == 0 and bk % 16 == 0 and bn % 8 == 0
+    if route(M, dtype_bytes) == "decode":
+        # wgmma's N (the padded rows) is 8, 16, 32 or 64; 32 K rows x 64
+        # output columns of weight a stage
+        assert bm in (8, 16, 32, 64) and bm < 2 * max(M, 8) and (bk, bn) == (32, 64)
+        assert stages <= max(DECODE_MAX_STAGES)
+    else:
+        assert bm % 16 == 0 and bk % 16 == 0 and bn % 8 == 0
 
 
 @pytest.mark.parametrize("dtype_bytes", [2, 4])
@@ -146,3 +155,70 @@ def test_wgmma_tile_width_spreads_narrow_n():
     # wide N takes 256-wide tiles (fewer bytes of shared memory per flop)
     for N in (2048, 5632, 8384, 8512, 32000, 50280):
         assert pick_blocks(2048, 2048, N, 2)[2] == 256
+
+
+@pytest.mark.parametrize("M", [1, 8, 33, 64])
+@pytest.mark.parametrize("kn", MAIN_PATH_KN)
+def test_decode_split_fills_the_card(M, kn):
+    """Every main-path decode shape launches at least NUM_SMS CTAs (64-column
+    tiles x K slices), each slice at least one 32-row K block, and a split
+    fits the workspace of fp32 partials."""
+    K, N = kn
+    tiles, split = -(-N // DECODE_BN), split_k(M, K, N)
+    assert tiles * split >= NUM_SMS
+    assert 1 <= split <= -(-K // DECODE_BK)
+    assert split <= DECODE_MAX_CLUSTER or tiles * split <= WORKSPACE_CTAS
+    assert split == 1 or tiles < 2 * NUM_SMS
+    assert split_k(2048, K, N) == 1 and split_k(M, K, N, 4) == 1   # other routes
+
+
+def _slices(K, split, bk=DECODE_BK):
+    """The kernel's K slices: 32-row blocks kb0 = s * n_kb // split, in rows."""
+    n_kb = -(-K // bk)
+    bounds = [s * n_kb // split for s in range(split + 1)]
+    return [(bk * a, min(K, bk * b)) for a, b in zip(bounds, bounds[1:])]
+
+
+@pytest.mark.parametrize("kn", MAIN_PATH_KN + [(136, 8), (136, 264), (5632, 8)])
+def test_decode_slice_plan_validates(kn):
+    """The per-CTA plan of a decode CTA is that of its K slice: it validates,
+    its num_slots is the ring depth, and it covers the longest slice."""
+    K, N = kn
+    split = split_k(8, K, N)
+    slices = _slices(K, split)
+    assert len(slices) == split and slices[0][0] == 0 and slices[-1][1] == K
+    assert all(a < b for a, b in slices)
+    longest = max(-(-(b - a) // DECODE_BK) for a, b in slices)
+    plan, (bm, bk, bn) = matmul_plan(8, K, N, 2)
+    plan.validate()
+    stages = pick_blocks(8, K, N, 2)[3]
+    assert plan.num_slots == stages <= max(2, min(DECODE_MAX_STAGES[split > 1], longest))
+    # the launch's CTAs fit in one wave, or its last wave is at least half full
+    ctas = -(-N // DECODE_BN) * split
+    per_cta = DECODE_RESERVE + decode_gather_bytes(bm, split) + stages * decode_stage_bytes(bm)
+    slots = NUM_SMS * (SMEM_PER_SM // per_cta)
+    assert stages == 2 or ctas <= slots or 2 * (ctas % slots) >= slots or ctas % slots == 0
+    assert sum(len(p.tiles) for p in plan.prefetches) >= longest
+
+
+@pytest.mark.parametrize("shape", [(8, 2048, 256), (8, 2048, 2048), (1, 136, 264), (33, 5632, 8),
+                                   (64, 4096, 200)])
+def test_split_k_emulation_matches_ref(shape):
+    """The decode route's arithmetic on the CPU: per K slice an fp32 partial
+    (bf16 products are exact in fp32), the partials summed in the fixed order
+    0 .. split-1, one rounding to bf16.  It agrees with matmul_ref at the bf16
+    tolerance and gives the same bits twice."""
+    M, K, N = shape
+    x = to_torch(randn(0, (M, K)), "bfloat16")
+    w = to_torch(randn(1, (K, N)) / K ** 0.5, "bfloat16")
+
+    def emulate():
+        acc = torch.zeros(M, N)
+        for a, b in _slices(K, split_k(M, K, N)):
+            acc = acc + x[:, a:b].float() @ w[a:b].float()
+        return acc.to(torch.bfloat16)
+
+    got = emulate()
+    assert split_k(M, K, N) > 1
+    torch.testing.assert_close(got.float(), matmul_ref(x, w).float(), rtol=3e-2, atol=8e-2)
+    assert torch.equal(got, emulate())

@@ -149,3 +149,98 @@ def test_upper_triangle_and_padding_contribute_nothing():
     # state of the same rows run as a chunk of their own
     _, st8, _, _ = ssd_chunk_ref(x[:, 32:], dt[:, 32:], A, Bm[:, 32:], Cm[:, 32:], chunk=8)
     torch.testing.assert_close(state[:, 2], st8[:, 0], rtol=1e-6, atol=1e-7)
+
+
+# chip_smoke.py's ssd_scan limits, per output: relative L2 and elementwise
+# rtol / atol times the output's RMS
+SSD_REL_L2, SSD_RTOL, SSD_ATOL = 1e-4, 1e-2, 1e-3
+
+
+def _tf32(a):
+    """a rounded to TF32 (nearest, ties away from zero: cvt.rna.tf32.f32)."""
+    return ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _bf16(a):
+    """a rounded to bf16 (nearest even), back in fp32."""
+    return a.bfloat16().float()
+
+
+def _tc_matmul(a, b, mode):
+    """a @ b as the tensor cores compute it from fp32 operands, sums in fp32:
+    "bf16x3" (the kernel) splits each operand into a bf16 high part and a
+    bf16 low part (the remainder, rounded) and sums lo.hi + hi.lo + hi.hi,
+    each product exact in fp32; "tf32" and "bf16" round each operand once."""
+    if mode == "tf32":
+        return _tf32(a) @ _tf32(b)
+    ah, bh = _bf16(a), _bf16(b)
+    if mode == "bf16":
+        return ah @ bh
+    al, bl = _bf16(a - ah), _bf16(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _ssd_kernel_numerics(x, dt, A, Bm, Cm, Q, mode, head_group=8):
+    """The Hopper kernel's decomposition in fp32 torch: G = C B^T once per
+    (b, chunk) and shared by every head of a group, (G o L) formed in fp32
+    (decays as the reference's, mask after the exp) and multiplied by x dt,
+    and the state product, every product through ``_tc_matmul``."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    x, dt, Bm, Cm = (torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                     for t in (x, dt, Bm, Cm))
+    cum = torch.cumsum((dt * A).reshape(Bsz, nc, Q, H), dim=2)         # (B,nc,Q,H)
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()
+    y = torch.empty(Bsz, nc, H, Q, P)
+    states = torch.empty(Bsz, nc, H, P, N)
+    for b in range(Bsz):
+        for c in range(nc):
+            rows = slice(c * Q, (c + 1) * Q)
+            G = _tc_matmul(Cm[b, rows], Bm[b, rows].T, mode)
+            for h0 in range(0, H, head_group):
+                for h in range(h0, min(H, h0 + head_group)):
+                    ch = cum[b, c, :, h]
+                    L = torch.where(causal, torch.exp((ch[:, None] - ch[None, :]).clamp(-60, 0)), 0.0)
+                    xdt = x[b, rows, h] * dt[b, rows, h, None]
+                    y[b, c, h] = _tc_matmul(G * L, xdt, mode)
+                    w = torch.exp((ch[-1] - ch).clamp(-60, 0))
+                    states[b, c, h] = _tc_matmul((xdt * w[:, None]).T, Bm[b, rows], mode)
+    cum = cum.transpose(2, 3)
+    return y, states, torch.exp(cum.clamp(-60, 0)), torch.exp(cum[..., -1:].clamp(-60, 0))
+
+
+def _ssd_limits(got, want):
+    """(largest relative L2, largest elementwise excess) over the 4 outputs."""
+    rel, excess = 0.0, 0.0
+    for g, w in zip(got, want):
+        rms = float(w.square().mean().sqrt())
+        rel = max(rel, float((g - w).norm() / w.norm()))
+        excess = max(excess, float(((g - w).abs() / (SSD_ATOL * rms + SSD_RTOL * w.abs())).max()))
+    return rel, excess
+
+
+def test_bf16x3_keeps_the_kernel_within_the_ssd_limits():
+    """Why the kernel's products are bf16x3: at the mamba2-1.3b widths (P 64,
+    N 128, Q 256, a shorter S and fewer heads; inputs at chip_smoke.py's
+    scales) the kernel's decomposition holds ssd_chunk_ref within the
+    relative L2 limit with a margin of ~20, while single TF32 products miss
+    it ~3x over and single bf16 products by far more."""
+    rng = np.random.default_rng(0)
+
+    def silu(a):
+        return a / (1 + np.exp(-a))
+
+    B, S, H, P, N, Q = 1, 400, 3, 64, 128, 256
+    arrays = (silu(rng.standard_normal((B, S, H, P))), _softplus(rng.standard_normal((B, S, H))),
+              -np.linspace(1.0, 16.0, H), silu(rng.standard_normal((B, S, N))),
+              silu(rng.standard_normal((B, S, N))))
+    x, dt, A, Bm, Cm = (torch.from_numpy(np.asarray(a, np.float32)) for a in arrays)
+    want = ssd_chunk_ref(x, dt, A, Bm, Cm, Q)
+    rel, excess = _ssd_limits(_ssd_kernel_numerics(x, dt, A, Bm, Cm, Q, "bf16x3"), want)
+    assert rel <= SSD_REL_L2 / 10 and excess <= 0.1
+    rel_tf32, _ = _ssd_limits(_ssd_kernel_numerics(x, dt, A, Bm, Cm, Q, "tf32"), want)
+    assert rel_tf32 > 2 * SSD_REL_L2
+    rel_bf16, _ = _ssd_limits(_ssd_kernel_numerics(x, dt, A, Bm, Cm, Q, "bf16"), want)
+    assert rel_bf16 > 10 * SSD_REL_L2
