@@ -44,10 +44,32 @@ exits non-zero; no phase's error is caught):
    against the plain path, each layer's flash and ssd call held against its
    plain version, and 4 decode steps (6 per-call-site KV caches) held against
    the plain path.
-10. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
-    7, 8 and 9, each counted from 0) in all and per route, error, times and
+10. prefill_granite_moe -- full-width, full-depth granite-moe-3b-a800m
+    ``loss_fn`` at B=2 x S=1024 (129 ``ltrf_matmul``, 32 ``flash_attention``
+    launches), held against the plain path in bf16 and in fp32, with the
+    number of tokens whose top-8 expert set differs between the paths per
+    layer, each layer's flash call against its plain version, planted MoE
+    faults (gate renormalisation dropped, inverse permutation dropped) and
+    attention faults, and the expert products (``torch.bmm``) timed.
+11. serve_granite_moe -- the serve of phase 5 for granite-moe, its first 4
+    decode steps held against the plain path in bf16 and fp32 (a planted
+    "capacity ignored" fault must fail the fp32 limit), 4 steps profiled, and
+    the expert products timed at the decode capacity.
+12. prefill_musicgen, serve_musicgen -- the same for musicgen-large (audio:
+    4 codebooks summed in, a 4 x 2048-wide head; 337 ``ltrf_matmul`` and 48
+    flash launches a prefill).
+13. prefill_llava -- llava-next-34b at full width, depth cut to 12 of 60
+    layers, on 576 seeded patch embeddings and 448 tokens.
+14. prefill_dbrx -- dbrx-132b at full width, depth cut to 2 of 40 layers.
+15. prefill_dense_wide -- phi3-medium-14b and granite-20b at full width,
+    depth cut to 4 layers each.
+    Every new prefill phase holds the model against the plain path in bf16
+    and in fp32 under limits a planted fault must fail, and records its depth
+    cut (``depth``).
+16. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
+    7-15, each counted from 0) in all and per route, error, times and
     bounds per kernel.
-11. the last line: ``{"ok": true, "device": {...}}``.
+17. the last line: ``{"ok": true, "device": {...}}``.
 
 Weights are random (seeded); the port imports neither jax nor the JAX package.
 Each model's weights are freed before the next model is made.  Bounds use the
@@ -85,10 +107,11 @@ from repro_torch.kernels.ltrf_matmul.ops import DECODE_MAX_CLUSTER  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_scan  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.models import layers, mamba2  # noqa: E402
+from repro_torch.models import layers, mamba2, moe  # noqa: E402
 from repro_torch.models import lm as lm_module  # noqa: E402
 from repro_torch.models.lm import (  # noqa: E402
-    decode_step, init_decode_cache, init_params, logits_fn, loss_fn,
+    ATTN_FAMILIES, decode_step, head_width, held_width, init_decode_cache, init_params,
+    logits_fn, loss_fn,
 )
 
 HBM_BYTES_PER_S = 3.35e12
@@ -96,6 +119,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ARCH = "tinyllama-1.1b"
 SSM_ARCH = "mamba2-1.3b"
 HYBRID_ARCH = "zamba2-1.2b"
+MOE_ARCH = "granite-moe-3b-a800m"
+AUDIO_ARCH = "musicgen-large"
+# prefilled at full width with their depth cut: llava's 60 layers are 68.8 GB
+# of bf16 weights (no room for the fp32 copy of the check), dbrx's 40 are
+# ~264 GB; phi3-medium-14b and granite-20b are cut to 4 to keep the run short
+DEPTH_CUTS = {"llava-next-34b": 12, "dbrx-132b": 2, "phi3-medium-14b": 4, "granite-20b": 4}
 KERNELS = ("ltrf_matmul", "flash_attention", "ssd_scan")
 # tolerances.  ltrf_matmul vs its plain version: the _tol table of the kernel
 # tests (its outputs here are about N(0, 1)).  flash_attention vs its plain
@@ -284,21 +313,24 @@ def slice_matmuls(cfg):
     QD, KVD = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
     dense = [((D, QD), 1), ((D, KVD), 2), ((QD, D), 1),   # wq; wk, wv; wo
              ((D, F_), 2), ((F_, D), 1)]                  # w_gate, w_up; w_down
-    if cfg.family == "dense":
-        return [(kn, n * L) for kn, n in dense] + [((D, cfg.vocab), 1)]
+    head = ((D, held_width(head_width(cfg))), 1)          # lm_head as held (padded)
+    if cfg.family == "moe":                               # experts are torch.bmm
+        return [(kn, n * L) for kn, n in dense[:3]] + [head]
+    if cfg.family in ATTN_FAMILIES:
+        return [(kn, n * L) for kn, n in dense] + [head]
     d_inner = cfg.ssm_expand * D
     d_in_proj = 2 * d_inner + 2 * cfg.ssm_state + d_inner // cfg.ssm_headdim
     mixer = [((D, d_in_proj), L), ((d_inner, D), L)]      # in_proj, out_proj
     shared = L // cfg.attn_every if cfg.family == "hybrid" else 0
-    return mixer + [(kn, n * shared) for kn, n in dense if shared] + [((D, cfg.vocab), 1)]
+    return mixer + [(kn, n * shared) for kn, n in dense if shared] + [head]
 
 
 def forward_launches(cfg) -> dict:
     """Kernel launches of one prefill forward on the kernel path."""
     shared = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
     return {"ltrf_matmul": sum(n for _, n in slice_matmuls(cfg)),
-            "flash_attention": cfg.n_layers if cfg.family == "dense" else shared,
-            "ssd_scan": 0 if cfg.family == "dense" else cfg.n_layers}
+            "flash_attention": cfg.n_layers if cfg.family in ATTN_FAMILIES else shared,
+            "ssd_scan": cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0}
 
 
 def ssd_work(B, S, H, P, N, Q) -> tuple[float, float]:
@@ -392,7 +424,10 @@ def check_matmuls(cfgs, dev, gen) -> list:
                        "smem_per_cta": plan.vmem_budget}
         copies = [w] + [w.clone() for _ in range(max(0, math.ceil(2 * L2_BYTES / w.nbytes) - 1))]
         rec["ms"], rec["eager_ms"] = time_ms([lambda w=c: ltrf_matmul(x, w) for c in copies])
-        rec["plain_ms"], _ = time_ms([lambda w=c: matmul_ref(x, w) for c in copies])
+        # the plain version in fp32 runs ~20x the kernel's time: at the large
+        # shapes 3 calls a sample, not 10
+        rec["plain_ms"], _ = time_ms([lambda w=c: matmul_ref(x, w) for c in copies],
+                                     min_iters=3 if 2 * M * K * N > 1e11 else 10)
         rec["library_ms"], rec["library_eager_ms"] = time_ms(
             [lambda w=c: torch.matmul(x, w) for c in copies])
         rec["bound_ms"], rec["bound_by"] = bound(
@@ -407,12 +442,17 @@ def check_matmuls(cfgs, dev, gen) -> list:
     return res
 
 
-def check_flash(cfg, hybrid, dev, gen) -> list:
+def check_flash(cfg, hybrid, others, dev, gen) -> list:
+    """tinyllama's shape (and ragged, and MQA), zamba2's, then one at each
+    of ``others``' (H, KV, d), each tagged with its arch."""
     res = []
-    for B, H, KV, S, d in [(2, cfg.n_heads, cfg.n_kv_heads, 1024, cfg.hd),
-                           (2, cfg.n_heads, cfg.n_kv_heads, 1000, cfg.hd),
-                           (2, 8, 1, 1024, cfg.hd),
-                           (2, hybrid.n_heads, hybrid.n_kv_heads, 1024, hybrid.hd)]:
+    shapes = [(2, cfg.n_heads, cfg.n_kv_heads, 1024, cfg.hd),
+              (2, cfg.n_heads, cfg.n_kv_heads, 1000, cfg.hd),
+              (2, 8, 1, 1024, cfg.hd),
+              (2, hybrid.n_heads, hybrid.n_kv_heads, 1024, hybrid.hd)]
+    shapes += [(2, c.n_heads, c.n_kv_heads, 1024, c.hd) for c in others]
+    archs = [cfg.name] * 3 + [hybrid.name] + [c.name for c in others]
+    for (B, H, KV, S, d), arch in zip(shapes, archs):
         dt = torch.bfloat16
         q = torch.randn(B, H, S, d, device=dev, generator=gen).to(dt)
         k = torch.randn(B, KV, S, d, device=dev, generator=gen).to(dt)
@@ -420,7 +460,7 @@ def check_flash(cfg, hybrid, dev, gen) -> list:
         got = flash_attention(q, k, v)
         torch.cuda.synchronize()
         want = attention_ref(q, k, v)
-        rec = {"B": B, "H": H, "KV": KV, "S": S, "d": d, "dtype": "bfloat16",
+        rec = {"arch": arch, "B": B, "H": H, "KV": KV, "S": S, "d": d, "dtype": "bfloat16",
                **compare_flash(got, want)}
         planted = compare_flash(attention_ref(q, *zero_kv_tile(k, v, 2)), want)
         rec["planted_fault"] = planted
@@ -483,7 +523,7 @@ def check_ssd(dev, gen) -> list:
 def phase_kernel_checks(cfgs, dev) -> dict:
     gen = torch.Generator(dev).manual_seed(123)
     return {"ltrf_matmul": check_matmuls(cfgs, dev, gen),
-            "flash_attention": check_flash(cfgs[0], cfgs[2], dev, gen),
+            "flash_attention": check_flash(cfgs[0], cfgs[2], cfgs[3:], dev, gen),
             "ssd_scan": check_ssd(dev, gen)}
 
 
@@ -507,6 +547,38 @@ def read_routes() -> dict:
 plain_attention = layers.causal_attention
 plain_carry = mamba2.chunk_carry
 plain_mask = mamba2._causal_mask
+plain_moe_block = lm_module.moe_block
+
+# planted attention faults (replacements of the plain path's causal_attention)
+ATTN_FAULTS = {
+    "not_causal": lambda q, k, v, q_block=512, q_offset=None: plain_attention(
+        q, k, v, q_block=q_block, q_offset=k.shape[1] - 1),
+    "kv_tile_zeroed": lambda q, k, v, q_block=512, q_offset=None: plain_attention(
+        q, *zero_kv_tile(k, v, 1), q_block=q_block, q_offset=q_offset),
+}
+
+
+@contextlib.contextmanager
+def patched(module, attr, replacement):
+    orig = getattr(module, attr)
+    setattr(module, attr, replacement)
+    try:
+        yield
+    finally:
+        setattr(module, attr, orig)
+
+
+def planted_logits(cfg, params, batch, logits_p, faults) -> dict:
+    """What the model-level limit reads for each planted fault, name ->
+    (module, attribute, replacement), on the plain path."""
+    out = {}
+    for name, fault in faults.items():
+        with patched(*fault):
+            logits_f, _ = logits_fn(params, batch, cfg, kernels=False)
+        out[name] = {"logits_rel_l2": rel_l2(logits_f, logits_p),
+                     "logits_row_rel_l2": row_rel_l2(logits_f, logits_p)}
+        del logits_f
+    return out
 
 
 @contextlib.contextmanager
@@ -566,8 +638,19 @@ def main_path_prefill(cfg, params, batch) -> tuple[torch.Tensor, dict, dict, flo
 
 
 def prefill_batch(cfg, dev, seed) -> dict:
-    toks = torch.randint(0, cfg.vocab, (2, 1024), device=dev,
-                         generator=torch.Generator(dev).manual_seed(seed + 1))
+    """B=2 x S=1024 positions from the seed, as the data pipeline lays them
+    out: audio codes (2, K, 1024); vlm n_patches patch embeddings (N(0,
+    0.02^2)) ahead of 1024 - n_patches tokens, labels 0 at the patches."""
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    if cfg.family == "audio":
+        codes = torch.randint(0, cfg.vocab, (2, cfg.n_codebooks, 1024), device=dev, generator=gen)
+        return {"codes": codes, "labels": codes}
+    if cfg.family == "vlm":
+        toks = torch.randint(0, cfg.vocab, (2, 1024 - cfg.n_patches), device=dev, generator=gen)
+        patches = 0.02 * torch.randn(2, cfg.n_patches, cfg.d_model, device=dev, generator=gen)
+        labels = torch.cat([toks.new_zeros((2, cfg.n_patches)), toks], dim=1)
+        return {"tokens": toks, "patches": patches, "labels": labels}
+    toks = torch.randint(0, cfg.vocab, (2, 1024), device=dev, generator=gen)
     return {"tokens": toks, "labels": toks}
 
 
@@ -664,19 +747,7 @@ def phase_prefill(cfg, params, dev, seed) -> dict:
     del calls
     # what the model-level limit reads for planted attention faults on the
     # plain path: attention that is not causal, and one KV tile zeroed
-    faults = {"not_causal": lambda q, k, v, q_block=512, q_offset=None: plain_attention(
-                  q, k, v, q_block=q_block, q_offset=k.shape[1] - 1),
-              "kv_tile_zeroed": lambda q, k, v, q_block=512, q_offset=None: plain_attention(
-                  q, *zero_kv_tile(k, v, 1), q_block=q_block, q_offset=q_offset)}
-    out["planted_model_faults"] = {}
-    for name, fault in faults.items():
-        layers.causal_attention = fault
-        try:
-            logits_f, _ = logits_fn(params, batch, cfg, kernels=False)
-        finally:
-            layers.causal_attention = plain_attention
-        out["planted_model_faults"][name] = {"logits_rel_l2": rel_l2(logits_f, logits_p)}
-        del logits_f
+    out["planted_model_faults"] = planted_logits(cfg, params, batch, logits_p, model_faults(cfg))
     del logits_p
     out.update(loss_fn_ms(cfg, params, batch))
     check(out["logits_rel_l2"] <= MODEL_LOGITS_REL_L2, f"prefill logits vs plain: {out}")
@@ -728,18 +799,8 @@ def plain_matmuls_rounded_once():
 
 def planted_ssm_faults(cfg, params, batch, logits_p) -> dict:
     """What the model-level limit reads for each planted SSM fault."""
-    out = {}
-    for name, (attr, fault) in SSM_FAULTS.items():
-        orig = getattr(mamba2, attr)
-        setattr(mamba2, attr, fault)
-        try:
-            logits_f, _ = logits_fn(params, batch, cfg, kernels=False)
-        finally:
-            setattr(mamba2, attr, orig)
-        out[name] = {"logits_rel_l2": rel_l2(logits_f, logits_p),
-                     "logits_row_rel_l2": row_rel_l2(logits_f, logits_p)}
-        del logits_f
-    return out
+    return planted_logits(cfg, params, batch, logits_p,
+                          {n: (mamba2, a, f) for n, (a, f) in SSM_FAULTS.items()})
 
 
 def ssm_prefill(cfg, params, dev, seed, faults: bool) -> dict:
@@ -797,22 +858,44 @@ def ssm_prefill(cfg, params, dev, seed, faults: bool) -> dict:
     return out
 
 
-def decode_vs_plain(cfg, params, dev, limit, steps: int = 4) -> list:
+def first_tokens(cfg, dev) -> torch.Tensor:
+    """The engine's first tokens for 8 slots: zeros, (8, 1) or (8, K, 1)."""
+    shape = (8, cfg.n_codebooks, 1) if cfg.family == "audio" else (8, 1)
+    return torch.zeros(shape, dtype=torch.long, device=dev)
+
+
+def engine_tokens(cfg, greedy) -> torch.Tensor:
+    """The next step's tokens from a step's argmax, as the engine feeds them:
+    (8, 1), or for audio codebook 0's token on every codebook, (8, K, 1)."""
+    if cfg.family == "audio":
+        return greedy[:, :1, None].expand(-1, cfg.n_codebooks, 1)
+    return greedy[:, None]
+
+
+def decode_pairs(cfg, params, dev, steps: int = 4, plain_fault=None) -> list:
     """The engine's first ``steps`` decode steps (zeros in, shared cache_len
-    0, 1, ...) on both paths, 8 slots, max_len 256."""
+    0, 1, ...) on both paths, 8 slots, max_len 256, each fed the kernel
+    path's greedy tokens; ``plain_fault`` (module, attribute, replacement)
+    is planted in the plain path's steps."""
     ck = init_decode_cache(cfg, 8, 256, dev)
     cp = init_decode_cache(cfg, 8, 256, dev)
-    toks = torch.zeros((8, 1), dtype=torch.long, device=dev)
+    toks = first_tokens(cfg, dev)
     out = []
     for step in range(steps):
         lk, ck = decode_step(params, ck, toks, step, cfg)
-        lp, cp = decode_step(params, cp, toks, step, cfg, kernels=False)
+        with patched(*plain_fault) if plain_fault else contextlib.nullcontext():
+            lp, cp = decode_step(params, cp, toks, step, cfg, kernels=False)
         out.append({"step": step, "logits_rel_l2": rel_l2(lk, lp),
                     "logits_max_abs_err": float((lk.float() - lp.float()).abs().max()),
                     "argmax_agree": float((lk[:, -1].argmax(-1) == lp[:, -1].argmax(-1))
                                           .float().mean())})
-        toks = lk[:, -1].argmax(-1, keepdim=True)
+        toks = engine_tokens(cfg, lk[:, -1].argmax(-1))
     del ck, cp
+    return out
+
+
+def decode_vs_plain(cfg, params, dev, limit, steps: int = 4) -> list:
+    out = decode_pairs(cfg, params, dev, steps)
     check(all(s["logits_rel_l2"] <= limit for s in out),
           f"{cfg.name} ({cfg.dtype}) decode vs plain: {out}")
     return out
@@ -857,12 +940,12 @@ def phase_profile(cfg, params, dev, trace_name="decode_trace.json") -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     cache = init_decode_cache(cfg, 8, 256, dev)
-    toks = torch.zeros((8, 1), dtype=torch.long, device=dev)
+    toks = first_tokens(cfg, dev)
 
     def step(n):
         nonlocal cache
         logits, cache = decode_step(params, cache, toks, n, cfg)
-        toks.copy_(torch.from_numpy(logits[:, -1].argmax(-1, keepdim=True).cpu().numpy()))
+        toks.copy_(engine_tokens(cfg, logits[:, -1].argmax(-1).cpu()))
 
     for n in range(2):
         step(n)
@@ -924,6 +1007,216 @@ def phase_prefill_zamba2(cfg, params, dev, seed) -> dict:
     return out
 
 
+# --- the moe, audio, vlm and wide dense families ----------------------------
+#
+# model-level limits of these families, kernel path vs plain path, as a
+# relative L2 of the logits: (bf16, fp32, the planted faults left to the fp32
+# limit).  Every planted fault must read above the fp32 limit, and every one
+# not listed above the bf16 limit.  Read on an H100 80GB HBM3 at 700 W (PERF.md):
+# - fp32: 3e-3 for the models without experts, where sound reads are 3e-6 to
+#   1.1e-5 and the weakest planted fault (one KV tile zeroed) 0.0185 to 0.143;
+#   1e-2 for the MoE models, where a few top-k choices flip between the paths
+#   even in fp32 and a flipped token's MoE output changes outright
+#   (granite-moe: 6 of 2048 x 32 choices, sound 1.0e-3; dbrx 1.5e-6), and the
+#   weakest fault reads 0.029.  The same limits hold the first 4 decode steps
+#   (sound 2e-6 to 4e-6; granite-moe with its capacity ignored reads 0.41).
+# - bf16: the dense limit where bf16 rounding alone stays under it (musicgen
+#   0.027 over 48 layers, llava 0.016 over 12; decode up to 0.031), tighter
+#   where the depth cut leaves the paths closer (phi3 and granite-20b 0.0071
+#   at 4 layers: 1.5e-2, which a zeroed KV tile, 0.020, fails; dbrx 0.010 at
+#   2: 2e-2, zeroed tile 0.030), and a gross 0.15 for granite-moe, where
+#   rounding alone flips 3 to 737 of the 2048 tokens' routes a layer and reads
+#   0.075 (decode up to 0.072; the dropped renormalisation reads 0.33, the
+#   dropped inverse permutation 0.82, a zeroed KV tile 0.095).
+FAMILY_LIMITS = {
+    MOE_ARCH: (0.15, 1e-2, ("kv_tile_zeroed",)),
+    AUDIO_ARCH: (MODEL_LOGITS_REL_L2, 3e-3, ()),
+    "llava-next-34b": (MODEL_LOGITS_REL_L2, 3e-3, ()),
+    "dbrx-132b": (2e-2, 1e-2, ()),
+    "phi3-medium-14b": (1.5e-2, 3e-3, ()),
+    "granite-20b": (1.5e-2, 3e-3, ()),
+}
+
+# planted MoE faults (replacements in repro_torch.models.moe): the top-k
+# gates not renormalised, the expert outputs not permuted back to their
+# tokens, and (at decode) no capacity limit
+MOE_FAULTS = {
+    "renorm_dropped": ("top_k_gates", lambda probs, top_k: tuple(
+        t[:, :top_k] for t in torch.sort(probs, dim=-1, descending=True, stable=True))),
+    "inverse_dropped": ("inverse_permutation",
+                        lambda order: torch.arange(order.numel(), device=order.device)),
+}
+CAPACITY_IGNORED = (moe, "capacity", lambda n_assign, n_experts, capacity_factor: n_assign)
+
+
+def model_faults(cfg) -> dict:
+    """name -> (module, attribute, replacement) of the planted faults."""
+    out = {n: (layers, "causal_attention", f) for n, f in ATTN_FAULTS.items()}
+    if cfg.family == "moe":
+        out.update({n: (moe, a, f) for n, (a, f) in MOE_FAULTS.items()})
+    return out
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Record each MoE layer's top-k expert set per token (sorted ids, (T, k))."""
+    sets = []
+
+    def record(params, x, *, top_k, capacity_factor=1.25, groups=1):
+        probs = torch.softmax(torch.matmul(x.reshape(-1, x.shape[-1]).float(),
+                                           params["router"]), dim=-1)
+        sets.append(moe.top_k_gates(probs, top_k)[1].sort(dim=-1).values)
+        return plain_moe_block(params, x, top_k=top_k, capacity_factor=capacity_factor,
+                               groups=groups)
+
+    with patched(lm_module, "moe_block", record):
+        yield sets
+
+
+def route_flips(sets_a, sets_b) -> list:
+    """Per layer, the tokens whose top-k expert sets differ between two runs."""
+    return [int((a != b).any(-1).sum()) for a, b in zip(sets_a, sets_b)]
+
+
+def time_experts(cfg, params, slots: int, dev) -> dict:
+    """The expert products (``moe.expert_ffn``: three ``torch.bmm`` and the
+    SwiGLU) of every layer at ``slots`` capacity slots an expert, timed as
+    CUDA-graph replays cycling over the layers' own weights (so they come
+    from HBM, as in a forward), beside their bound: the weights and the
+    (E, C, D) input and output moved once, 2 x 3 x E x C x D x F operations."""
+    E, D, F_, L = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.n_layers
+    gen = torch.Generator(dev).manual_seed(7)
+    xe = torch.randn(E, slots, D, device=dev, generator=gen).to(cfg.torch_dtype)
+    fns = [lambda p=p["moe"]: moe.expert_ffn(p, xe) for p in params["layers"]]
+    ms, eager_ms = time_ms(fns, reps=5, min_iters=len(fns))
+    nbytes = (3 * E * D * F_ + 2 * E * slots * D) * xe.element_size()
+    bound_ms, bound_by = bound(nbytes, 2 * 3 * E * slots * D * F_, cfg.torch_dtype)
+    return {"slots": slots, "layers": L, "ms_per_layer": ms, "eager_ms_per_layer": eager_ms,
+            "ms": L * ms, "bound_ms_per_layer": bound_ms, "bound_ms": L * bound_ms,
+            "bound_by": bound_by, "weight_bytes_per_layer": 3 * E * D * F_ * xe.element_size()}
+
+
+def depth(cfg) -> dict:
+    full = get_arch(cfg.name).n_layers
+    return {"n_layers": cfg.n_layers, "of": full, "cut": cfg.n_layers < full}
+
+
+def family_prefill(cfg, params, dev, seed) -> dict:
+    """Kernel-path prefill of a dense, moe, vlm or audio model, held against
+    the plain path in bf16 and in fp32 (with planted faults on the plain
+    path in both), each layer's flash call against its plain version, and
+    for MoE models the routing flips between the paths per layer and the
+    expert products' time."""
+    batch = prefill_batch(cfg, dev, seed)
+    loss, counts, routes, wall = main_path_prefill(cfg, params, batch)
+    faults = model_faults(cfg)
+    is_moe = cfg.family == "moe"
+    with recording_flash() as calls, recording_routes() as sets_k:
+        logits_k, _ = logits_fn(params, batch, cfg)
+    with recording_routes() as sets_p:
+        logits_p, _ = logits_fn(params, batch, cfg, kernels=False)
+    loss_p, _ = loss_fn(params, batch, cfg, kernels=False)
+    out = {"depth": depth(cfg), "loss": float(loss), "loss_plain": float(loss_p),
+           "loss_rel_diff": abs(float(loss) - float(loss_p)) / abs(float(loss_p)),
+           "logits_rel_l2": rel_l2(logits_k, logits_p),
+           "logits_row_rel_l2": row_rel_l2(logits_k, logits_p),
+           "logits_max_abs_err": float((logits_k.float() - logits_p.float()).abs().max()),
+           "logits_shape": list(logits_k.shape), "first_call_s": wall, "launches": counts,
+           "launches_by_route": routes}
+    if is_moe:
+        out["route_flips_per_layer"] = route_flips(sets_k, sets_p)
+        out["route_flips_tokens"] = sets_k[0].shape[0]
+    del logits_k, sets_k, sets_p
+    out["flash_per_layer"] = flash_per_layer(calls, cfg.n_layers)
+    del calls
+    # what bf16 rounding alone does over this depth: the plain path with its
+    # products rounded once from fp32 sums, against the plain path
+    with plain_matmuls_rounded_once():
+        logits_r, _ = logits_fn(params, batch, cfg, kernels=False)
+    out["plain_rounding_rel_l2"] = rel_l2(logits_r, logits_p)
+    del logits_r
+    out["planted_model_faults"] = planted_logits(cfg, params, batch, logits_p, faults)
+    del logits_p
+    free_memory()
+    # the same weights and inputs in fp32: kernel path vs plain path, and the
+    # planted faults there
+    cfg32, params32 = dataclasses.replace(cfg, dtype="float32"), fp32_copy(params)
+    with recording_routes() as sets_k:
+        lk, _ = logits_fn(params32, batch, cfg32)
+    with recording_routes() as sets_p:
+        lp, _ = logits_fn(params32, batch, cfg32, kernels=False)
+    out["fp32"] = {"logits_rel_l2": rel_l2(lk, lp), "logits_row_rel_l2": row_rel_l2(lk, lp)}
+    if is_moe:
+        out["fp32"]["route_flips_per_layer"] = route_flips(sets_k, sets_p)
+    del lk, sets_k, sets_p
+    out["fp32"]["planted_model_faults"] = planted_logits(cfg32, params32, batch, lp, faults)
+    del lp, params32
+    free_memory()
+    out.update(loss_fn_ms(cfg, params, batch))
+    if is_moe:
+        out["expert_products"] = time_experts(
+            cfg, params, moe.capacity(2048 * cfg.top_k, cfg.n_experts, cfg.capacity_factor), dev)
+    bf16_limit, fp32_limit, fp32_only = FAMILY_LIMITS[cfg.name]
+    check(out["fp32"]["logits_rel_l2"] <= fp32_limit,
+          f"{cfg.name} fp32 prefill logits vs plain: {out}")
+    for name, fault in out["fp32"]["planted_model_faults"].items():
+        check(fault["logits_rel_l2"] > fp32_limit,
+              f"{cfg.name}: the fp32 limit passes a planted fault ({name}): {out}")
+    check(out["logits_rel_l2"] <= bf16_limit, f"{cfg.name} prefill logits vs plain: {out}")
+    for name, fault in out["planted_model_faults"].items():
+        check(name in fp32_only or fault["logits_rel_l2"] > bf16_limit,
+              f"{cfg.name}: the bf16 limit passes a planted fault ({name}): {out}")
+    check(out["loss_rel_diff"] <= MODEL_LOSS_REL, f"{cfg.name} prefill loss vs plain: {out}")
+    return out
+
+
+def family_serve(cfg, params, dev, seed) -> dict:
+    """The serve of phase 5 for a full config, its first 4 decode steps held
+    against the plain path in bf16 and fp32 (for MoE, a planted "capacity
+    ignored" fault must fail the fp32 limit), and 4 steps profiled."""
+    arch = cfg.name
+    bf16_limit, fp32_limit, _ = FAMILY_LIMITS[arch]
+    stats = main_path_serve(arch, cfg, dev, seed)
+    free_memory()
+    out = {**stats, "decode_vs_plain": {"bf16": decode_vs_plain(cfg, params, dev, bf16_limit)}}
+    free_memory()
+    cfg32, params32 = dataclasses.replace(cfg, dtype="float32"), fp32_copy(params)
+    out["decode_vs_plain"]["fp32"] = decode_vs_plain(cfg32, params32, dev, fp32_limit)
+    if cfg.family == "moe":
+        planted = decode_pairs(cfg32, params32, dev, plain_fault=CAPACITY_IGNORED)
+        out["decode_vs_plain"]["fp32_planted_capacity_ignored"] = planted
+        check(max(s["logits_rel_l2"] for s in planted) > fp32_limit,
+              f"{arch}: the fp32 decode limit passes a planted fault (capacity ignored): {out}")
+    del params32
+    free_memory()
+    out["profile"] = phase_profile(cfg, params, dev, f"decode_trace_{arch}.json")
+    if cfg.family == "moe":
+        ex = time_experts(cfg, params, moe.capacity(8 * cfg.top_k, cfg.n_experts,
+                                                   cfg.capacity_factor), dev)
+        ex["share_of_device_busy"] = ex["ms"] / out["profile"]["device_busy_ms_per_step"]
+        ex["share_of_wall"] = ex["ms"] / out["profile"]["wall_ms_per_step"]
+        out["expert_products_decode"] = ex
+    return out
+
+
+def phase_prefill_dense_wide(cfgs, dev, seed) -> dict:
+    """phi3-medium-14b and granite-20b, each at full width with its depth cut
+    to 4; each model's weights freed before the next is made.  The phase's
+    launches are the two prefills' together."""
+    out = {}
+    for cfg in cfgs:
+        params = init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+        out[cfg.name] = family_prefill(cfg, params, dev, seed)
+        del params
+        free_memory()
+    runs = list(out.values())
+    out["launches"] = {n: sum(r["launches"][n] for r in runs) for n in KERNELS}
+    out["launches_by_route"] = {n: {r: sum(x["launches_by_route"][n][r] for x in runs)
+                                    for r in runs[0]["launches_by_route"][n]}
+                                for n in runs[0]["launches_by_route"]}
+    return out
+
+
 def kernels_line(cfgs, checks, paths, routes) -> dict:
     """``paths``: each main path's launch counts, by phase; ``routes``: the
     same per route, for the kernels that have routes."""
@@ -945,7 +1238,7 @@ def kernels_line(cfgs, checks, paths, routes) -> dict:
     mixes = {cfg.name: {"decode_m8": mix(cfg, 8), "prefill_m2048": mix(cfg, 2048)}
              for cfg in cfgs}
     tiny = mixes[ARCH]
-    fa, fa_hybrid = checks["flash_attention"][0], checks["flash_attention"][-1]
+    fa, fa_hybrid = checks["flash_attention"][0], checks["flash_attention"][3]
     ssd, ssd_hybrid = checks["ssd_scan"][0], checks["ssd_scan"][2]
     return {"kernels": [
         {"name": "ltrf_matmul", "route": "cuda",
@@ -980,6 +1273,9 @@ def kernels_line(cfgs, checks, paths, routes) -> dict:
                                 "bf16, causal"),
                        **{k: fa_hybrid[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                     "library_ms", "max_abs_err")}},
+         "by_arch": {r["arch"]: {k: r[k] for k in ("H", "KV", "d", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms", "max_abs_err")}
+                     for r in checks["flash_attention"][4:]},
          "launches_by_path": {k: p["flash_attention"] for k, p in paths.items()}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
@@ -1010,7 +1306,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfgs = [get_arch(a) for a in (ARCH, SSM_ARCH, HYBRID_ARCH)]
+    cfgs = [get_arch(a) for a in (ARCH, SSM_ARCH, HYBRID_ARCH, MOE_ARCH, AUDIO_ARCH)]
+    cfgs += [dataclasses.replace(get_arch(a), n_layers=n) for a, n in DEPTH_CUTS.items()]
     results: dict = {}
 
     def run(name, fn, *a):
@@ -1028,7 +1325,12 @@ def main() -> int:
             (cfgs[0], [("prefill", phase_prefill), ("serve", phase_serve)]),
             (cfgs[1], [("prefill_mamba2", phase_prefill_mamba2),
                        ("serve_mamba2", phase_serve_mamba2)]),
-            (cfgs[2], [("prefill_zamba2", phase_prefill_zamba2)])]:
+            (cfgs[2], [("prefill_zamba2", phase_prefill_zamba2)]),
+            (cfgs[3], [("prefill_granite_moe", family_prefill),
+                       ("serve_granite_moe", family_serve)]),
+            (cfgs[4], [("prefill_musicgen", family_prefill), ("serve_musicgen", family_serve)]),
+            (cfgs[5], [("prefill_llava", family_prefill)]),
+            (cfgs[6], [("prefill_dbrx", family_prefill)])]:
         params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed), dev)
         for name, fn in phases:
             run(name, fn, cfg, params, dev, args.seed)
@@ -1038,6 +1340,9 @@ def main() -> int:
             run("profile", phase_profile, cfg, params, dev)
         del params
         free_memory()
+    run("prefill_dense_wide", phase_prefill_dense_wide, cfgs[7:], dev, args.seed)
+    paths["prefill_dense_wide"] = results["prefill_dense_wide"]["launches"]
+    routes["prefill_dense_wide"] = results["prefill_dense_wide"]["launches_by_route"]
     line = kernels_line(cfgs, results["kernel_checks"], paths, routes)
     for k in line["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")

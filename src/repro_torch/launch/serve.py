@@ -1,7 +1,7 @@
 """Serving driver: continuous batching with paged KV on one device.
 
-``python -m repro_torch.launch.serve --arch tinyllama-1.1b --full``
-(or ``--arch mamba2-1.3b`` / ``zamba2-1.2b``)
+``python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --full``
+(``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS``)
 
 Wraps the ServingEngine (two-level request scheduler + the paper's Address
 Allocation Unit for KV pages) with a synthetic request generator and random
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..configs import get_arch, get_smoke
+from ..configs import ARCH_IDS, get_arch, get_smoke
 from ..serving import ServeConfig, ServingEngine
 
 
@@ -58,7 +58,7 @@ def serve(arch_id: str, smoke: bool = True, n_requests: int = 16,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--arch", default="tinyllama-1.1b", choices=ARCH_IDS)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--seed", type=int, default=0)

@@ -1,4 +1,5 @@
-"""Language model (port of ``repro.models.lm``): dense, ssm and hybrid families.
+"""Language model (port of ``repro.models.lm``): all six families (dense,
+moe, vlm, audio, ssm, hybrid).
 
 The math is the JAX package's unrolled path (``_forward_unrolled``): a Python
 loop over layers.  Params are a dict whose ``"layers"`` entry is a list of
@@ -6,7 +7,13 @@ per-layer dicts (the JAX pytree stacks them on a leading axis; see
 ``convert.params_from_numpy``).  Every function takes ``kernels`` (default
 True): on CUDA tensors the projections, the lm_head product, prefill
 attention and the Mamba2 chunked scan then run on the hand-written kernels;
-``kernels=False`` is the plain PyTorch path with the same math.
+``kernels=False`` is the plain PyTorch path with the same math.  The MoE
+router and expert products are plain PyTorch on both paths (``moe.py``).
+
+An ``lm_head`` whose width (vocab, or n_codebooks * vocab) is not a multiple
+of 8 is held with zero columns up to a multiple of 64 (``pad_head``), so its
+rows are a multiple of 16 bytes, as the matmul kernel and TMA need; every
+logits tensor is cut back to the true width before it is returned or used.
 
 Entry points:
   init_params(cfg, generator, device)            -> params
@@ -28,15 +35,33 @@ from .layers import (
     rms_norm,
 )
 from .mamba2 import CONV_K, init_mamba2, mamba2_block, mamba2_decode
+from .moe import init_moe, moe_block
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet: ROADMAP "
-            "queue 1 item 5 (moe, vlm, audio)")
+def head_width(cfg: ArchConfig) -> int:
+    """The true width of the logits: vocab, or n_codebooks * vocab (audio)."""
+    return cfg.vocab * (cfg.n_codebooks if cfg.family == "audio" else 1)
+
+
+def held_width(n: int) -> int:
+    """The width a head of true width n is held at: n if it is a multiple of
+    8, else n rounded up to a multiple of 64."""
+    return n if n % 8 == 0 else -(-n // 64) * 64
+
+
+def pad_head(w: torch.Tensor) -> torch.Tensor:
+    """``lm_head`` (D, n) as held: zero columns up to ``held_width(n)``."""
+    n = w.shape[1]
+    if held_width(n) == n:
+        return w
+    return torch.nn.functional.pad(w, (0, held_width(n) - n)).contiguous()
+
+
+def _head(cfg: ArchConfig, params, x, kernels):
+    """x @ lm_head, cut to the true width."""
+    return matmul(x, params["lm_head"], kernels)[..., :head_width(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -49,13 +74,17 @@ def _init_block(cfg: ArchConfig, gen, dev) -> dict:
         return {"mixer": init_mamba2(gen, cfg.d_model, cfg.ssm_state, cfg.ssm_headdim,
                                      cfg.ssm_expand, dt, dev),
                 "norm": init_rms(cfg.d_model, dev)}
-    return {
+    p = {
         "attn": init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                cfg.hd, cfg.qk_norm, dt, dev),
         "norm1": init_rms(cfg.d_model, dev),
         "norm2": init_rms(cfg.d_model, dev),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dt, dev),
     }
+    if cfg.family == "moe":
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, dt, dev)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt, dev)
+    return p
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
@@ -64,13 +93,18 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
     cast to the model dtype; norms all ones).  The draws differ from JAX's:
     to compare the two, carry JAX's weights across with ``params_from_numpy``.
     ``generator`` must live on ``device`` (default: seed 0 there)."""
-    _require_ported(cfg)
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator(dev).manual_seed(0)
     dt = cfg.torch_dtype
+    if cfg.family == "audio":     # one table per codebook, stacked (K, V, D)
+        emb = torch.stack([init_embedding(gen, cfg.vocab, cfg.d_model, dt, dev)
+                           for _ in range(cfg.n_codebooks)])
+    else:
+        emb = init_embedding(gen, cfg.vocab, cfg.d_model, dt, dev)
     params = {
-        "embed": init_embedding(gen, cfg.vocab, cfg.d_model, dt, dev),
-        "lm_head": _init(gen, (cfg.d_model, cfg.vocab), 1.0 / math.sqrt(cfg.d_model), dt, dev),
+        "embed": emb,
+        "lm_head": pad_head(_init(gen, (cfg.d_model, head_width(cfg)),
+                                  1.0 / math.sqrt(cfg.d_model), dt, dev)),
         "layers": [_init_block(cfg, gen, dev) for _ in range(cfg.n_layers)],
         "final_norm": init_rms(cfg.d_model, dev),
     }
@@ -90,6 +124,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
 # forward
 # ---------------------------------------------------------------------------
 
+def _ffn(cfg: ArchConfig, p, h, kernels, groups):
+    """The block's MLP, or its MoE layer (with its aux loss)."""
+    if cfg.family == "moe":
+        return moe_block(p["moe"], h, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, groups=groups)
+    return mlp_block(p["mlp"], h, kernels), None
+
+
 def _dense_block(cfg: ArchConfig, p, x, positions, kernels):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     h = attention_block(p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -98,8 +140,8 @@ def _dense_block(cfg: ArchConfig, p, x, positions, kernels):
                         norm_eps=cfg.norm_eps, q_block=cfg.q_block,
                         kernels=kernels)
     x = x + h
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp_block(p["mlp"], h, kernels)
+    h, aux = _ffn(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps), kernels, cfg.moe_groups)
+    return x + h, aux
 
 
 def _ssm_block(cfg: ArchConfig, p, x, kernels):
@@ -123,39 +165,70 @@ def _shared_block(cfg: ArchConfig, p, x, positions, kernels):
 
 
 def forward(params, cfg: ArchConfig, x, positions, kernels: bool = True):
-    """Backbone over embedded inputs x: (B, S, D) -> ((B, S, D), aux)."""
-    _require_ported(cfg)
+    """Backbone over embedded inputs x: (B, S, D) -> ((B, S, D), aux), aux
+    the sum of the MoE layers' load-balance losses (0 for other families)."""
+    if cfg.family not in ATTN_FAMILIES + ("ssm", "hybrid"):
+        raise ValueError(cfg.family)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
-        if cfg.family == "dense":
-            x = _dense_block(cfg, p, x, positions, kernels)
+        if cfg.family in ATTN_FAMILIES:
+            x, a = _dense_block(cfg, p, x, positions, kernels)
+            if a is not None:
+                aux = aux + a
             continue
         x = _ssm_block(cfg, p, x, kernels)
         if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
             x = _shared_block(cfg, params["shared_attn"], x, positions, kernels)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
+def _embed_codes(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Audio: codes (B, K, S) -> the sum of the K codebooks' embeddings, in
+    codebook order."""
+    x = embed(table[0], codes[:, 0])
+    for k in range(1, table.shape[0]):
+        x = x + embed(table[k], codes[:, k])
+    return x
+
+
 def embed_inputs(params, cfg: ArchConfig, batch):
-    """Token embedding.  Returns (x, positions)."""
-    _require_ported(cfg)
-    x = embed(params["embed"], batch["tokens"])
+    """Family-specific input embedding.  Returns (x, positions).
+
+    vlm: ``batch["patches"]`` (B, n_patches, D) ahead of the token
+    embeddings; audio: ``batch["codes"]`` (B, K, S); else ``batch["tokens"]``.
+    Positions run 0..S-1 over the whole sequence."""
+    if cfg.family == "audio":
+        x = _embed_codes(params["embed"], batch["codes"])
+    else:
+        x = embed(params["embed"], batch["tokens"])
+        if cfg.family == "vlm":
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     return x, positions
 
 
 def logits_fn(params, batch, cfg: ArchConfig, kernels: bool = True):
-    """Full-sequence logits (B, S, vocab) and the aux loss."""
+    """Full-sequence logits (B, S, vocab) (audio: (B, S, K, vocab)) and the
+    aux loss."""
     x, positions = embed_inputs(params, cfg, batch)
     h, aux = forward(params, cfg, x, positions, kernels)
-    return matmul(h, params["lm_head"], kernels), aux
+    logits = _head(cfg, params, h, kernels)
+    if cfg.family == "audio":
+        logits = logits.reshape(*h.shape[:2], cfg.n_codebooks, cfg.vocab)
+    return logits, aux
 
 
 def loss_fn(params, batch, cfg: ArchConfig, kernels: bool = True):
-    """Causal LM loss over the batch.  Returns (loss, metrics)."""
+    """Causal LM loss over the batch, plus 0.01 x the MoE aux loss.  Returns
+    (loss, metrics).  Audio labels are (B, K, S); vlm labels cover the patch
+    positions too (zeros there, as the data pipeline makes them)."""
     logits, aux = logits_fn(params, batch, cfg, kernels)
-    loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    labels = batch["labels"]
+    if cfg.family == "audio":
+        loss = cross_entropy(logits[:, :-1], labels[:, :, 1:].transpose(1, 2))
+    else:
+        loss = cross_entropy(logits[:, :-1], labels[:, 1:])
     return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
 
@@ -166,18 +239,17 @@ def loss_fn(params, batch, cfg: ArchConfig, kernels: bool = True):
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> dict:
     """Zeroed decode caches.
 
-    dense: (L, B, S_max, kv, hd) K and V.  ssm and hybrid: the conv window
-    (L, B, K-1, C) in the model dtype and the SSM state (L, B, H, P, N) in
-    fp32; hybrid adds K and V caches for each of the n_layers // attn_every
+    dense, moe, vlm and audio: (L, B, S_max, kv, hd) K and V.  ssm and
+    hybrid: the conv window (L, B, K-1, C) in the model dtype and the SSM
+    state (L, B, H, P, N) in fp32; hybrid adds K and V caches for each of the n_layers // attn_every
     call sites of the shared block.  The reference makes the SSM state in the
     model dtype, but its first decode step returns it in fp32; zeros are exact
     in both, and holding fp32 from the start lets the steps update the cache
     in place without rounding it.
     """
-    _require_ported(cfg)
     dev = resolve_device(device)
     dt = cfg.torch_dtype
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         kv_dt = getattr(torch, cfg.kv_dtype) if cfg.kv_dtype else dt
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
         return {"k": torch.zeros(shape, dtype=kv_dt, device=dev),
@@ -206,20 +278,26 @@ def _attention_decode_block(cfg: ArchConfig, p, x, cache_k, cache_v, cache_len, 
         n_kv=cfg.n_kv_heads, head_dim=cfg.hd, qk_norm=qk_norm,
         rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps, kernels=kernels)
     x = x + h
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp_block(p["mlp"], h, kernels)
+    # the MoE layer dispatches the step's B tokens as one group, as the
+    # reference's decode step does
+    h, _ = _ffn(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps), kernels, 1)
+    return x + h
 
 
 def decode_step(params, cache, tokens, cache_len: int, cfg: ArchConfig,
                 kernels: bool = True):
-    """One-token decode.  tokens: (B, 1) int.  Returns (logits, cache); the
+    """One-token decode.  tokens: (B, 1) int (audio: (B, K, 1)).  Returns
+    (logits, cache): logits (B, 1, vocab) (audio: (B, 1, K, vocab)); the
     cache is updated in place.  The ssm family ignores ``cache_len``; the
-    hybrid's shared block uses it for its KV caches."""
-    _require_ported(cfg)
-    x = embed(params["embed"], tokens)
+    hybrid's shared block uses it for its KV caches.  The vlm family decodes
+    tokens only, as the reference does."""
+    if cfg.family == "audio":
+        x = _embed_codes(params["embed"], tokens)
+    else:
+        x = embed(params["embed"], tokens)
     g = 0  # the hybrid's next shared-block call site
     for i, p in enumerate(params["layers"]):
-        if cfg.family == "dense":
+        if cfg.family in ATTN_FAMILIES:
             x = _attention_decode_block(cfg, p, x, cache["k"][i], cache["v"][i],
                                         cache_len, kernels, cfg.qk_norm)
             continue
@@ -238,4 +316,7 @@ def decode_step(params, cache, tokens, cache_len: int, cfg: ArchConfig,
                                         cache["v"][g], cache_len, kernels, False)
             g += 1
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return matmul(x, params["lm_head"], kernels), cache
+    logits = _head(cfg, params, x, kernels)
+    if cfg.family == "audio":
+        logits = logits.reshape(x.shape[0], 1, cfg.n_codebooks, cfg.vocab)
+    return logits, cache

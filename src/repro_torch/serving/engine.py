@@ -8,7 +8,9 @@ reference, all slots share one ``cache_len`` (clamped to ``max_len - 1``;
 the ssm family ignores it), each slot is fed its previous greedy token (zeros
 at first; prompts only set ``prompt_len`` for paging), the step's tokens map
 onto the active requests in order, and a slot's SSM state is not reset when
-a new request takes the slot.
+a new request takes the slot.  Audio models are fed each slot's token on
+every codebook and emit codebook 0's greedy token.  The slot order is part of
+a MoE model's result: capacity drops depend on which tokens share a step.
 """
 from __future__ import annotations
 
@@ -60,10 +62,15 @@ class ServingEngine:
         while (self.sched.active or self.sched.waiting) and steps < max_steps:
             steps += 1
             toks = torch.from_numpy(self.tokens).to(self.device)
+            if self.cfg.family == "audio":       # (B, 1) -> (B, K, 1)
+                toks = toks[:, None, :].expand(-1, self.cfg.n_codebooks, 1)
             logits, self.cache = decode_step(
                 self.params, self.cache, toks,
                 min(cache_len, self.sc.max_len - 1), self.cfg)
-            nxt = logits[:, -1, :].argmax(dim=-1).cpu().numpy()
+            nxt = logits[:, -1].argmax(dim=-1)
+            if self.cfg.family == "audio":       # codebook 0's token
+                nxt = nxt[:, 0]
+            nxt = nxt.cpu().numpy()
             for i, r in enumerate(list(self.sched.active)):
                 if i >= self.tokens.shape[0]:
                     break

@@ -263,3 +263,81 @@ def test_ssm_smoke_model_kernel_path_matches_plain_path(dev, arch):
         lk, ck = lm.decode_step(params, ck, toks[:, step:step + 1], step, cfg)
         lp, cp = lm.decode_step(params, cp, toks[:, step:step + 1], step, cfg, kernels=False)
         torch.testing.assert_close(lk, lp, rtol=1e-3, atol=1e-3)
+
+
+# the moe, audio, vlm and wide dense families' projections (K, N), the
+# padded 49216-wide granite-moe head included, on both bf16 routes
+NEW_FAMILY_SHAPES = [
+    (1536, 1536), (1536, 512), (1536, 49216),                      # granite-moe-3b-a800m
+    (2048, 2048), (2048, 8192), (8192, 2048),                      # musicgen-large
+    (7168, 7168), (7168, 1024), (7168, 20480), (7168, 64000), (20480, 7168),  # llava-next-34b
+    (6144, 6144), (6144, 1024), (6144, 100352),                    # dbrx-132b
+    (5120, 5120), (5120, 1280), (5120, 17920), (5120, 100352), (17920, 5120),  # phi3-medium-14b
+    (6144, 128), (6144, 24576), (6144, 49152), (24576, 6144),      # granite-20b
+]
+
+
+@pytest.mark.parametrize("M", [8, 2048])
+@pytest.mark.parametrize("K,N", NEW_FAMILY_SHAPES)
+def test_ltrf_matmul_new_family_shapes(dev, K, N, M):
+    g = torch.Generator(dev).manual_seed(6)
+    x = torch.randn(M, K, device=dev, generator=g).bfloat16()
+    w = (torch.randn(K, N, device=dev, generator=g) / K ** 0.5).bfloat16()
+    route = "decode" if M <= 64 else "wgmma"
+    before = dict(ltrf_matmul.launches_by_route)
+    got = ltrf_matmul(x, w)
+    torch.cuda.synchronize()
+    assert ltrf_matmul.launches_by_route == {**before, route: before[route] + 1}
+    torch.testing.assert_close(got.float(), matmul_ref(x, w).float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("H,KV,d", [(24, 8, 64), (32, 32, 64), (56, 8, 128), (48, 8, 128),
+                                    (40, 10, 128), (48, 1, 128)],
+                         ids=["granite-moe", "musicgen", "llava", "dbrx", "phi3", "granite-20b"])
+def test_flash_attention_new_family_shapes(dev, H, KV, d):
+    g = torch.Generator(dev).manual_seed(7)
+    q, k, v = (torch.randn(2, n, 1024, d, device=dev, generator=g).bfloat16() for n in (H, KV, KV))
+    before = dict(flash_attention.launches_by_route)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route == {**before, "wgmma": before["wgmma"] + 1}
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v).float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+def _family_batch(cfg, dev, S=40):
+    g = torch.Generator(dev).manual_seed(1)
+    if cfg.family == "audio":
+        codes = torch.randint(0, cfg.vocab, (2, cfg.n_codebooks, S), device=dev, generator=g)
+        return {"codes": codes, "labels": codes}
+    toks = torch.randint(0, cfg.vocab, (2, S), device=dev, generator=g)
+    if cfg.family == "vlm":
+        patches = 0.02 * torch.randn(2, cfg.n_patches, cfg.d_model, device=dev, generator=g)
+        labels = torch.cat([toks.new_zeros((2, cfg.n_patches)), toks], 1)
+        return {"tokens": toks, "patches": patches, "labels": labels}
+    return {"tokens": toks, "labels": toks}
+
+
+@pytest.mark.parametrize("vocab", [None, 253])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "dbrx-132b", "musicgen-large",
+                                  "llava-next-34b", "granite-20b"])
+def test_new_family_smoke_model_kernel_path_matches_plain_path(dev, arch, vocab):
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    if vocab:
+        cfg = dataclasses.replace(cfg, vocab=vocab)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    batch = _family_batch(cfg, dev)
+    dense = 3 if cfg.family != "moe" else 0
+    before = ltrf_matmul.launches, flash_attention.launches
+    got, _ = lm.logits_fn(params, batch, cfg)
+    assert ltrf_matmul.launches - before[0] == (4 + dense) * cfg.n_layers + 1
+    assert flash_attention.launches - before[1] == cfg.n_layers
+    want, _ = lm.logits_fn(params, batch, cfg, kernels=False)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    ck, cp = (lm.init_decode_cache(cfg, 2, 8, dev) for _ in range(2))
+    for step in range(3):
+        toks = (batch["codes"][:, :, step:step + 1] if cfg.family == "audio"
+                else batch["tokens"][:, step:step + 1])
+        lk, ck = lm.decode_step(params, ck, toks, step, cfg)
+        lp, cp = lm.decode_step(params, cp, toks, step, cfg, kernels=False)
+        torch.testing.assert_close(lk, lp, rtol=1e-3, atol=1e-3)

@@ -22,8 +22,13 @@ from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.models import lm as T  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
-ARCHS = ["tinyllama-1.1b", "qwen3-0.6b", "mamba2-1.3b", "zamba2-1.2b"]
+from repro_torch.configs import ARCH_IDS, get_arch  # noqa: E402
+
+ARCHS = ["tinyllama-1.1b", "qwen3-0.6b", "mamba2-1.3b", "zamba2-1.2b",
+         "granite-moe-3b-a800m", "dbrx-132b", "musicgen-large", "llava-next-34b",
+         "phi3-medium-14b", "granite-20b"]
 SSM_ARCHS = ["mamba2-1.3b", "zamba2-1.2b"]
+NEW_ARCHS = ARCHS[4:]
 FP32 = dict(rtol=1e-3, atol=1e-3)
 
 
@@ -39,10 +44,29 @@ def _params(jcfg, tcfg, seed=0):
 
 
 def _batch(cfg, B=2, S=16, seed=0):
+    """A batch as the data pipeline builds it: audio codes (B, K, S); vlm
+    patches (B, n_patches, D) ahead of S tokens, labels 0 at the patches."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
-    return ({"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)},
-            {"tokens": torch.from_numpy(toks).long(), "labels": torch.from_numpy(toks).long()})
+    if cfg.family == "audio":
+        codes = rng.integers(0, cfg.vocab, (B, cfg.n_codebooks, S)).astype(np.int32)
+        batch = {"codes": codes, "labels": codes}
+    elif cfg.family == "vlm":
+        toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+        patches = rng.standard_normal((B, cfg.n_patches, cfg.d_model), dtype=np.float32) * 0.02
+        batch = {"tokens": toks, "patches": patches,
+                 "labels": np.concatenate([np.zeros((B, cfg.n_patches), np.int32), toks], 1)}
+    else:
+        toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+        batch = {"tokens": toks, "labels": toks}
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) if v.dtype == np.float32 else torch.from_numpy(v).long()
+             for k, v in batch.items()})
+
+
+def _decode_tokens(cfg, rng, B):
+    """One decode step's tokens: (B, 1), or (B, K, 1) for audio."""
+    shape = (B, cfg.n_codebooks, 1) if cfg.family == "audio" else (B, 1)
+    return rng.integers(0, cfg.vocab, shape).astype(np.int32)
 
 
 def test_params_from_numpy_is_exact():
@@ -96,7 +120,7 @@ def test_decode_steps_and_cache(arch):
     rng = np.random.default_rng(2)
     decode = jax.jit(lambda p, c, t, n: J.decode_step(p, c, t, n, jcfg))
     for step in range(6):
-        toks = rng.integers(0, tcfg.vocab, (B, 1)).astype(np.int32)
+        toks = _decode_tokens(tcfg, rng, B)
         jl, jc = decode(jp, jc, jnp.asarray(toks), jnp.int32(step))
         tl, tc = T.decode_step(tp, tc, torch.from_numpy(toks).long(), step, tcfg)
         assert tuple(tl.shape) == jl.shape
@@ -130,13 +154,22 @@ def test_init_params_shapes_match_reference():
         assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype, k
 
 
-@pytest.mark.parametrize("family_arch", ["musicgen-large", "granite-moe-3b-a800m"])
-def test_unported_families_raise(family_arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_smoke(family_arch)
-    cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(cfg, device="cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_resolves_and_builds(arch):
+    """Every id of the registry resolves to the JAX package's configs (full
+    and smoke) and builds smoke params with the reference's keys and shapes."""
+    full, smoke = get_arch(arch), get_smoke(arch)
+    from repro.configs import get_arch as jax_get_arch
+    assert dataclasses.asdict(full) == dataclasses.asdict(jax_get_arch(arch))
+    assert dataclasses.asdict(smoke) == dataclasses.asdict(jax_get_smoke(arch))
+    jcfg, tcfg = _configs(arch, "bfloat16")
+    jp, _ = J.init_params(jcfg, jax.random.PRNGKey(0))
+    got = _flat(T.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu"))
+    want = _flat(params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu"))
+    assert got.keys() == want.keys()
+    for k in got:
+        assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype, k
+    assert got["lm_head"].shape == (tcfg.d_model, T.head_width(tcfg))
 
 
 
@@ -187,3 +220,107 @@ def test_decode_cache_dtypes_after_first_step(arch):
     assert tc["ssm"].dtype == torch.float32 and tc["conv"].dtype == torch.bfloat16
     assert_close(tl, jl, "bfloat16")
     assert_close(tc["ssm"], jc["ssm"], "bfloat16")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "musicgen-large", "llava-next-34b"])
+def test_params_from_numpy_is_exact_new_families(arch):
+    """The expert stacks (L, E, D, F) arrive per layer as (E, D, F), the
+    router stays fp32, the audio embedding stays a (K, V, D) stack: every
+    leaf bit for bit."""
+    jcfg, tcfg = _configs(arch, "bfloat16")
+    jp, tp = _params(jcfg, tcfg)
+    want = jax.tree.map(np.asarray, jp)
+    got = _flat(tp)
+    flat_want = {}
+    for k, v in _flat({k: v for k, v in want.items() if k != "layers"}).items():
+        flat_want[k] = v
+    for i in range(tcfg.n_layers):
+        for k, v in _flat(jax.tree.map(lambda a, i=i: a[i], want["layers"])).items():
+            flat_want[f"layers.{i}.{k}"] = v
+    assert got.keys() == flat_want.keys()
+    for k, j in flat_want.items():
+        t = got[k]
+        assert str(t.dtype).split(".")[-1] == j.dtype.name and t.is_contiguous(), k
+        np.testing.assert_array_equal(t.float().numpy(), j.astype(np.float32), err_msg=k)
+    if tcfg.family == "moe":
+        assert got["layers.0.moe.router"].dtype == torch.float32
+        assert got["layers.0.moe.w_gate"].shape == (tcfg.n_experts, tcfg.d_model, tcfg.d_ff)
+    if tcfg.family == "audio":
+        assert got["embed"].shape == (tcfg.n_codebooks, tcfg.vocab, tcfg.d_model)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "tinyllama-1.1b", "llava-next-34b"])
+def test_padded_head_never_reaches_argmax_or_loss(arch):
+    """A vocab that is not a multiple of 8 (253): lm_head is held 256 wide
+    with zero columns.  Set those columns huge: forward, loss and decode
+    still equal the reference's, so the padding never reaches an argmax,
+    a softmax or the loss."""
+    jcfg, tcfg = _configs(arch, "float32")
+    jcfg, tcfg = (dataclasses.replace(c, vocab=253) for c in (jcfg, tcfg))
+    jp, tp = _params(jcfg, tcfg)
+    head = tp["lm_head"]
+    assert head.shape == (tcfg.d_model, 256) and head.is_contiguous()
+    assert not head[:, 253:].any()
+    np.testing.assert_array_equal(head[:, :253].numpy(), np.asarray(jp["lm_head"]))
+    assert T.init_params(tcfg, device="cpu")["lm_head"].shape == (tcfg.d_model, 256)
+    head[:, 253:] = 1e4
+    jb, tb = _batch(tcfg)
+    tl, _ = T.logits_fn(tp, tb, tcfg)
+    assert tl.shape[-1] == 253
+    jloss, _ = J.loss_fn(jp, jb, jcfg)
+    tloss, _ = T.loss_fn(tp, tb, tcfg)
+    assert_close(tloss, jloss, **FP32)
+    jc, _ = J.init_decode_cache(jcfg, 2, 8)
+    tc = T.init_decode_cache(tcfg, 2, 8, device="cpu")
+    toks = np.array([[3], [250]], np.int32)
+    jl, _ = J.decode_step(jp, jc, jnp.asarray(toks), jnp.int32(0), jcfg)
+    tl, _ = T.decode_step(tp, tc, torch.from_numpy(toks).long(), 0, tcfg)
+    assert tuple(tl.shape) == jl.shape == (2, 1, 253)
+    assert_close(tl, jl, **FP32)
+    np.testing.assert_array_equal(tl[:, -1].argmax(-1).numpy(), np.asarray(jnp.argmax(jl[:, -1], -1)))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_unpadded_heads_keep_their_shape(arch):
+    """Widths that are multiples of 8 are held as they are, full configs
+    included (shapes only); granite-moe's 49155 is held 49216 wide."""
+    cfg = get_arch(arch)
+    width = T.head_width(cfg)
+    held = T.held_width(width)
+    assert held == width if width % 8 == 0 else (held % 64 == 0 and 0 < held - width < 64)
+    assert T.pad_head(torch.empty((2, width), device="meta")).shape == (2, held)
+    if arch == "granite-moe-3b-a800m":
+        assert (width, held) == (49155, 49216)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "dbrx-132b"])
+def test_moe_aux_loss_is_summed_over_layers(arch):
+    """forward's aux is the sum of the layers' MoE aux losses (as the
+    reference's unrolled forward), and loss_fn adds 0.01 of it."""
+    jcfg, tcfg = _configs(arch, "float32")
+    jp, tp = _params(jcfg, tcfg)
+    jb, tb = _batch(tcfg)
+    jx, jpos = J.embed_inputs(jp, jcfg, jb)
+    _, jaux = J.forward(jp, jcfg, jx, jpos)
+    tx, tpos = T.embed_inputs(tp, tcfg, tb)
+    _, taux = T.forward(tp, tcfg, tx, tpos)
+    assert float(taux) > 0
+    assert_close(taux, jaux, **FP32)
+    total, m = T.loss_fn(tp, tb, tcfg)
+    assert_close(total, m["loss"] + 0.01 * m["aux_loss"], rtol=1e-6, atol=1e-6)
+    assert_close(m["aux_loss"], jaux, **FP32)
+
+
+def test_moe_groups_in_forward_and_not_in_decode():
+    """forward dispatches cfg.moe_groups token groups; decode_step one."""
+    jcfg, tcfg = _configs("granite-moe-3b-a800m", "float32")
+    jcfg, tcfg = (dataclasses.replace(c, moe_groups=2) for c in (jcfg, tcfg))
+    jp, tp = _params(jcfg, tcfg)
+    jb, tb = _batch(tcfg)
+    assert_close(T.loss_fn(tp, tb, tcfg)[0], J.loss_fn(jp, jb, jcfg)[0], **FP32)
+    jc, _ = J.init_decode_cache(jcfg, 3, 8)
+    tc = T.init_decode_cache(tcfg, 3, 8, device="cpu")
+    toks = np.array([[1], [2], [3]], np.int32)
+    jl, _ = J.decode_step(jp, jc, jnp.asarray(toks), jnp.int32(0), jcfg)
+    tl, _ = T.decode_step(tp, tc, torch.from_numpy(toks).long(), 0, tcfg)
+    assert_close(tl, jl, **FP32)

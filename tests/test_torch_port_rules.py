@@ -76,6 +76,27 @@ def test_ssm_family_entry_points_raise_without_card(no_card, entry, arch):
         calls[entry]()
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "dbrx-132b", "musicgen-large",
+                                  "llava-next-34b", "phi3-medium-14b", "granite-20b"])
+@pytest.mark.parametrize("entry", ["engine", "init_params", "decode_cache", "serve"])
+def test_new_family_entry_points_raise_without_card(no_card, entry, arch):
+    cfg = get_smoke(arch)
+    calls = {
+        "engine": lambda: ServingEngine(cfg),
+        "init_params": lambda: init_params(cfg),
+        "decode_cache": lambda: init_decode_cache(cfg, 2, 8),
+        "serve": lambda: serve(arch),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        calls[entry]()
+
+
+def test_port_has_no_unported_family_guard():
+    """Every family runs: nothing in the port raises NotImplementedError."""
+    for path in PORT_FILES:
+        assert "NotImplementedError" not in path.read_text(), path
+
+
 def test_wrappers_take_plain_path_only_for_cpu_tensors():
     x, w = torch.randn(8, 16), torch.randn(16, 24)
     torch.testing.assert_close(ltrf_matmul(x, w), matmul_ref(x, w), rtol=0, atol=0)

@@ -37,10 +37,14 @@ def _submit_both(engines, prompts, max_new):
             eng.submit(p, max_new_tokens=m)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-0.6b", "mamba2-1.3b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-0.6b", "mamba2-1.3b", "zamba2-1.2b",
+                                  "granite-moe-3b-a800m", "dbrx-132b", "musicgen-large",
+                                  "llava-next-34b", "phi3-medium-14b", "granite-20b"])
 def test_greedy_tokens_identical(arch):
     # 7 requests on 4 slots: slots are reused, and (as in the reference) a
-    # slot's SSM state is not reset when a new request takes it
+    # slot's SSM state is not reset when a new request takes it; the MoE
+    # models drop assignments past capacity, which depends on the slot order;
+    # musicgen feeds each token to all 4 codebooks and emits codebook 0's
     je, te = _engines(arch, dict(max_len=32, active_slots=4, total_pages=16))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 256, rng.integers(1, 8)).tolist() for _ in range(7)]
@@ -125,7 +129,25 @@ def test_scheduler_equals_reference(seed):
             break  # a request larger than the pool: both stall identically
 
 
-def test_serve_driver_on_cpu():
-    stats = serve("tinyllama-1.1b", n_requests=6, max_new=5, device="cpu")
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "granite-moe-3b-a800m", "musicgen-large"])
+def test_serve_driver_on_cpu(arch):
+    stats = serve(arch, n_requests=6, max_new=5, device="cpu")
     assert stats["completed"] == 6 and stats["pages_leaked"] == 0
     assert stats["tokens"] > 0 and stats["steps"] > 0 and stats["device"] == "cpu"
+
+
+def test_moe_slot_order_is_part_of_the_result():
+    """At decode a MoE step's capacity is shared by its slots: the same
+    request gets other tokens when its neighbours change (the reference's
+    semantics, which the engine keeps by feeding the slots in order)."""
+    je, te = _engines("granite-moe-3b-a800m", dict(max_len=32, active_slots=4, total_pages=16))
+    _submit_both((je, te), [[1], [2], [3], [4]], [6] * 4)
+    want, got = je.run(), te.run()
+    assert got == want
+    # the last slot loses its assignments to any expert an earlier slot took
+    # (capacity 1 at 4 tokens, top-2 of 8 experts); served alone it keeps them
+    je2, te2 = _engines("granite-moe-3b-a800m", dict(max_len=32, active_slots=1, total_pages=16))
+    _submit_both((je2, te2), [[4]], [6])
+    alone_j, alone_t = je2.run(), te2.run()
+    assert alone_t == alone_j
+    assert alone_t[0] != got[3]
