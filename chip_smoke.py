@@ -66,10 +66,32 @@ exits non-zero; no phase's error is caught):
     Every new prefill phase holds the model against the plain path in bf16
     and in fp32 under limits a planted fault must fail, and records its depth
     cut (``depth``).
-16. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
-    7-15, each counted from 0) in all and per route, error, times and
-    bounds per kernel.
-17. the last line: ``{"ok": true, "device": {...}}``.
+16. train_tinyllama -- full-width, full-depth tinyllama-1.1b trained for 6
+    steps (bf16, ``cfg.remat`` "full", B=8 x S=1024 from the data pipeline)
+    through ``runtime.train_step.build_train_step``: ms a step, tokens/s, the
+    device-busy share of one step, 6 N tokens / step time against 989
+    TFLOP/s, peak memory beside the state's bytes; every ``ltrf_matmul``
+    launch (forward, remat recompute, both backward products) and every
+    flash launch on ``wgmma``; the loss of the first batch lower after the
+    steps; two steps from one state give the same bits under
+    ``torch.use_deterministic_algorithms``.  Also the backward's pieces
+    timed at the step's shapes: ``matmul_vjp`` (two kernel products) per
+    projection against cuBLAS, and flash's plain-recompute backward.
+17. train_replay -- the same model, depth cut to 2 layers, trained 12 steps
+    through ``launch.train.train`` twice (checkpoints every 5 steps to the
+    temporary directory), once uninterrupted and once with failures
+    injected at steps 7 and 9, under deterministic algorithms: the final
+    parameters must be bit-identical; the checkpoints' seconds reported.
+18. train_grads -- tinyllama-1.1b and mamba2-1.3b at full width, depth cut
+    to 2, B=2 x S=1024: kernel-path gradients against plain-path gradients
+    leaf by leaf (relative L2), in fp32 under a sharp limit and in bf16;
+    planted faults in the backward (a zeroed dW, a non-causal flash
+    recompute, a dropped ``in_decay`` gradient) must fail the fp32 limit;
+    ``ssd_scan``'s plain-recompute backward timed.
+19. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
+    7-17, each counted from 0) in all and per route, error, times and
+    bounds per kernel, and each kernel's training launches and backward.
+20. the last line: ``{"ok": true, "device": {...}}``.
 
 Weights are random (seeded); the port imports neither jax nor the JAX package.
 Each model's weights are freed before the next model is made.  Bounds use the
@@ -84,15 +106,21 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS repeats its sums bit for bit only with a fixed workspace, set before
+# CUDA starts (train_tinyllama's and train_replay's deterministic steps)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -106,7 +134,17 @@ from repro_torch.kernels.ltrf_matmul import (  # noqa: E402
 from repro_torch.kernels.ltrf_matmul.ops import DECODE_MAX_CLUSTER  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_scan  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.data import batch_for_step  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.ltrf_matmul import ops as mm_ops  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.runtime import (  # noqa: E402
+    build_eval_step, build_train_step, grads_of, make_train_state, to_device,
+)
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models import layers, mamba2, moe  # noqa: E402
 from repro_torch.models import lm as lm_module  # noqa: E402
 from repro_torch.models.lm import (  # noqa: E402
@@ -770,11 +808,7 @@ SSM_FAULTS = {
 
 def fp32_copy(tree):
     """The same weights in fp32 (every bf16 value is exact in fp32)."""
-    if isinstance(tree, dict):
-        return {k: fp32_copy(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [fp32_copy(v) for v in tree]
-    return tree.float()
+    return tree_map(lambda t: t.float(), tree)
 
 
 plain_matmul = layers.matmul
@@ -964,7 +998,7 @@ def phase_profile(cfg, params, dev, trace_name="decode_trace.json") -> dict:
     # 8 rows), reads and writes the SSM state and conv window, and reads the
     # KV caches (whole, as plain decode attention does)
     nbytes = {"weights": sum(t.numel() * t.element_size() for k, v in params.items()
-                             if k != "embed" for t in _leaves(v)),
+                             if k != "embed" for t in tree_leaves(v)),
               "ssm_state": sum(t.numel() * t.element_size() for k, t in cache.items()
                                if k in ("ssm", "conv")),
               "kv_cache": sum(t.numel() * t.element_size() for k, t in cache.items()
@@ -977,17 +1011,6 @@ def phase_profile(cfg, params, dev, trace_name="decode_trace.json") -> dict:
             "bytes_per_step": nbytes,
             "hbm_bound_ms_per_step": 1e3 * (nbytes["weights"] + 2 * nbytes["ssm_state"]
                                             + nbytes["kv_cache"]) / HBM_BYTES_PER_S}
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def phase_prefill_mamba2(cfg, params, dev, seed) -> dict:
@@ -1217,9 +1240,417 @@ def phase_prefill_dense_wide(cfgs, dev, seed) -> dict:
     return out
 
 
-def kernels_line(cfgs, checks, paths, routes) -> dict:
+# --- training ---------------------------------------------------------------
+#
+# train_tinyllama: B x S tokens a step from the data pipeline, the optimizer
+# of launch.train (lr 1e-3, 10 warm-up steps); train_replay: 12 steps of the
+# same model cut to 2 layers, failures at steps 7 and 9 (as
+# tests/test_runtime.py:119-136); train_grads: 2 layers, B=2 x S=1024.
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 6
+TRAIN_OPT = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+REPLAY_LAYERS, REPLAY_STEPS, REPLAY_EVERY, REPLAY_FAILURES = 2, 12, 5, {7: 1, 9: 1}
+GRAD_LAYERS, GRAD_B = 2, 2
+# kernel path against plain path, per gradient leaf, as a relative L2 (the
+# largest over the leaves), per model and dtype.  In fp32 the paths differ
+# by sum order only: on an H100 80GB HBM3 at 700 W sound reads were 3.9e-6
+# (tinyllama) and 1.2e-4 (mamba2, at A_log, whose gradient sums the
+# ssd_scan outputs' small bf16x3 rounding over every position), and the
+# planted faults a zeroed dW 1.0, a non-causal flash recompute 0.91 and a
+# dropped in_decay gradient 0.048: each fp32 limit sits >= 16x above its
+# sound value and >= 24x under the weakest fault.  In bf16 the paths round
+# at other points in every layer (sound 7.9e-3 and 1.03e-2): the limits
+# there bound gross faults only.
+TRAIN_GRAD_REL_L2 = {ARCH: {"float32": 1e-4, "bfloat16": 3e-2},
+                     SSM_ARCH: {"float32": 2e-3, "bfloat16": 4e-2}}
+# flash's backward (bf16 gradients of the plain recompute) against SDPA's
+# fp32 backward on the same bf16 inputs, at the train shape, per gradient
+# as a relative L2: on an H100 80GB HBM3 at 700 W sound reads were
+# 1.7e-3-2.4e-3 (the gradients' bf16 rounding, dk and dv summed over each
+# group in bf16) and a non-causal recompute 0.88-0.91.  The train shape's
+# matmul products (forward, dX, dW at M = 8192) are held to TOL's bf16 row
+# at unit RMS: sound reads used <= 16 % of it, a planted tile >= 19x.
+FLASH_GRAD_REL_L2 = 1e-2
+
+real_matmul_vjp = mm_ops.matmul_vjp
+real_flash_vjp = flash_ops.flash_vjp
+real_ssd_vjp = ssd_ops.ssd_chunk_vjp
+
+
+def _dw_zeroed(x, w, dy, needs):
+    dx, dw = real_matmul_vjp(x, w, dy, needs)
+    return dx, None if dw is None else torch.zeros_like(dw)
+
+
+# planted faults in the kernels' backward: name -> (module, attribute, replacement)
+GRAD_FAULTS = {
+    "matmul_dw_zeroed": (mm_ops, "matmul_vjp", _dw_zeroed),
+    "flash_not_causal": (flash_ops, "flash_vjp",
+                         lambda q, k, v, causal, do: real_flash_vjp(q, k, v, False, do)),
+    "ssd_in_decay_dropped": (ssd_ops, "ssd_chunk_vjp", lambda ins, chunk, g: real_ssd_vjp(
+        ins, chunk, (g[0], g[1], None, g[3]))),
+}
+ARCH_GRAD_FAULTS = {ARCH: ("matmul_dw_zeroed", "flash_not_causal"),
+                    SSM_ARCH: ("matmul_dw_zeroed", "ssd_in_decay_dropped")}
+
+
+def train_step_launches(cfg) -> dict:
+    """Kernel launches of one train step's gradient: the forward, the
+    blocks' recompute under remat (every launch but the head's product) and
+    two backward products for each forward product."""
+    fwd = forward_launches(cfg)
+    again = 1 if cfg.remat != "none" else 0
+    mm = fwd["ltrf_matmul"]
+    return {"ltrf_matmul": mm + again * (mm - 1) + 2 * mm,
+            "flash_attention": (1 + again) * fwd["flash_attention"],
+            "ssd_scan": (1 + again) * fwd["ssd_scan"]}
+
+
+def eager_ms(fn, reps: int = 3) -> float:
+    """Median device ms of ``fn`` launched from Python, between CUDA events
+    (for calls too large or too dynamic to capture in a graph)."""
+    fn()
+    samples = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    return statistics.median(samples)
+
+
+def named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def compare_train_product(got, want) -> dict:
+    """One product of the train step against its plain version: the bf16
+    row of TOL with both sides divided by the plain output's RMS (TOL's
+    limits are for outputs of about unit size; the train products' are not:
+    dX is ~1/sqrt(K), the head's dW ~sqrt(M/N))."""
+    got, want = got.float(), want.float()
+    rms = float(want.square().mean().sqrt().clamp_min(1e-30))
+    err = (got - want).abs()
+    limit = TOL[torch.bfloat16]["atol"] * rms + TOL[torch.bfloat16]["rtol"] * want.abs()
+    return {"max_abs_err": float(err.max()), "rms": rms, "rel_l2": rel_l2(got, want),
+            "max_excess": float((err / limit).max()), "within_tol": bool((err <= limit).all())}
+
+
+def planted_tile(t, transpose: bool):
+    """The planted matmul faults: one 128 x 128 output tile zeroed, or
+    transposed (a tile written from the wrong operand layout)."""
+    t, n = t.clone(), min(128, *t.shape)
+    tile = t[:n, :n]
+    tile.copy_(tile.t().clone() if transpose else torch.zeros_like(tile))
+    return t
+
+
+def check_train_matmuls(cfg, dev) -> dict:
+    """Every ``ltrf_matmul`` product of one train step at its shape, M = B x S
+    rows: the forward x @ w and ``matmul_vjp``'s dX = dY w^T and dW = x^T dY,
+    each held against ``matmul_ref`` on the same inputs (a planted zeroed or
+    transposed tile must fail each check); then ``matmul_vjp`` (with its
+    transposes' copies) timed against the same two products in cuBLAS and
+    their bound, summed over a step's launches."""
+    M, gen = TRAIN_B * TRAIN_S, torch.Generator(dev).manual_seed(11)
+    per_shape, tot = [], {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+    for (K, N), n in slice_matmuls(cfg):
+        x = torch.randn(M, K, device=dev, generator=gen).bfloat16()
+        w = (torch.randn(K, N, device=dev, generator=gen) / math.sqrt(K)).bfloat16()
+        dy = (torch.randn(M, N, device=dev, generator=gen) / math.sqrt(N)).bfloat16()
+        dx, dw = mm_ops.matmul_vjp(x, w, dy, (True, True))
+        products = {"forward": (ltrf_matmul(x, w), lambda: matmul_ref(x, w), False),
+                    "dX": (dx, lambda: matmul_ref(dy, w.t()), True),
+                    "dW": (dw, lambda: matmul_ref(x.t(), dy), False)}
+        rec = {"K": K, "N": N, "per_step": n}
+        for name, (got, plain, transpose) in products.items():
+            want = plain()
+            fault = "tile_transposed" if transpose else "tile_zeroed"
+            rec[name] = {**compare_train_product(got, want),
+                         fault: compare_train_product(planted_tile(got, transpose), want)}
+            check(rec[name]["within_tol"],
+                  f"train matmul {name} at M={M}, K={K}, N={N} disagrees with plain: {rec}")
+            check(not rec[name][fault]["within_tol"],
+                  f"train matmul {name} check at K={K}, N={N} passes a planted {fault}")
+            del want
+        del dx, dw, products
+        ms, _ = time_ms([lambda: mm_ops.matmul_vjp(x, w, dy, (True, True))], min_iters=5)
+        lib, _ = time_ms([lambda: (torch.matmul(dy, w.t()), torch.matmul(x.t(), dy))],
+                         min_iters=5)
+        b, by = bound(2 * (2 * M * K + 2 * K * N + 2 * M * N), 4 * M * K * N, torch.bfloat16)
+        rec.update({"ms": ms, "library_ms": lib, "bound_ms": b, "bound_by": by})
+        emit({"check": "ltrf_matmul_train", "M": M, **rec})
+        per_shape.append(rec)
+        tot["ms"] += n * ms
+        tot["library_ms"] += n * lib
+        tot["bound_ms"] += n * b
+        tot["launches"] += 2 * n
+        del x, w, dy
+    free_memory()
+    return {**tot, "unit": f"the backward products of one {cfg.name} train step, "
+                           f"M = {M}, bf16", "shapes": per_shape}
+
+
+def check_train_flash(cfg, dev) -> dict:
+    """flash_attention at one layer's train shape: the kernel forward held
+    against attention_ref (a zeroed KV tile must fail), its backward
+    (``flash_vjp``: the plain version recomputed) held against SDPA's fp32
+    backward on the same inputs (a non-causal recompute must fail); each
+    timed, beside SDPA's bf16 forward and backward."""
+    gen = torch.Generator(dev).manual_seed(12)
+    B, H, KV, S, d = TRAIN_B, cfg.n_heads, cfg.n_kv_heads, TRAIN_S, cfg.hd
+    q = torch.randn(B, H, S, d, device=dev, generator=gen).bfloat16()
+    k, v = (torch.randn(B, KV, S, d, device=dev, generator=gen).bfloat16() for _ in range(2))
+    do = torch.randn(B, H, S, d, device=dev, generator=gen).bfloat16()
+    want = attention_ref(q, k, v)
+    rec = {"forward": {**compare_flash(flash_attention(q, k, v), want),
+                       "planted_fault": compare_flash(
+                           attention_ref(q, *zero_kv_tile(k, v, 2)), want)}}
+    # the backward's yardstick: SDPA in fp32, K and V repeated over each group
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q32, k32.repeat_interleave(H // KV, 1),
+                                         v32.repeat_interleave(H // KV, 1), is_causal=True)
+    want = torch.autograd.grad(out, (q32, k32, v32), do.float())
+    del out, q32, k32, v32
+    free_memory()
+
+    def grad_errs(grads) -> dict:
+        return {n: rel_l2(g, r) for n, g, r in zip(("dq", "dk", "dv"), grads, want)}
+
+    rec["backward"] = {"rel_l2": grad_errs(flash_ops.flash_vjp(q, k, v, True, do)),
+                       "planted_not_causal": grad_errs(flash_ops.flash_vjp(q, k, v, False, do)),
+                       "limit": FLASH_GRAD_REL_L2}
+    del want
+    free_memory()
+    emit({"check": "flash_attention_train", **rec})
+    check(rec["forward"]["within_tol"], f"flash at the train shape disagrees with plain: {rec}")
+    check(not rec["forward"]["planted_fault"]["within_tol"],
+          f"flash check at the train shape passes a zeroed KV tile: {rec}")
+    check(max(rec["backward"]["rel_l2"].values()) <= FLASH_GRAD_REL_L2,
+          f"flash backward at the train shape disagrees with SDPA's: {rec}")
+    check(max(rec["backward"]["planted_not_causal"].values()) > FLASH_GRAD_REL_L2,
+          f"flash backward check passes a non-causal recompute: {rec}")
+    bwd = eager_ms(lambda: flash_ops.flash_vjp(q, k, v, True, do))
+    fwd = eager_ms(lambda: flash_attention(q, k, v))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    lib = eager_ms(sdpa)
+    free_memory()
+    return {"unit": f"one layer at B={B}, H={H}, KV={KV}, S={S}, d={d}, bf16, causal",
+            **rec, "backward_ms": bwd, "kernel_forward_ms": fwd,
+            "library_forward_backward_ms": lib, "layers_per_step": cfg.n_layers,
+            "backward_ms_per_step": cfg.n_layers * bwd}
+
+
+def phase_train_tinyllama(cfg, dev, seed) -> dict:
+    state = make_train_state(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    step = build_train_step(cfg, TRAIN_OPT)
+    shape = ShapeConfig("chip_train", TRAIN_S, TRAIN_B, "train")
+    batches = [batch_for_step(cfg, shape, s, seed + 1) for s in range(TRAIN_STEPS)]
+    evaluate = build_eval_step(cfg)
+    loss_before = float(evaluate(state["params"], batches[0])["loss"])
+    state_bytes = {"params": nbytes(state["params"]), "grads": nbytes(state["params"]),
+                   "mu": nbytes(state["opt"]["mu"]), "nu": nbytes(state["opt"]["nu"])}
+    free_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls, metrics = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts, routes = read_counts(), read_routes()     # the main path's launches
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: TRAIN_STEPS * v for k, v in train_step_launches(cfg).items()}
+    loss_after = float(evaluate(state["params"], batches[0])["loss"])
+    step_ms = statistics.median(walls[1:])
+    tokens = TRAIN_B * TRAIN_S
+    out = {"steps": TRAIN_STEPS, "batch": TRAIN_B, "seq": TRAIN_S, "remat": cfg.remat,
+           "dtype": cfg.dtype, "params": cfg.param_count(), "step_ms": walls,
+           "median_step_ms": step_ms, "first_step_ms": walls[0],
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "model_flops_share": 6 * cfg.param_count() * tokens / (step_ms / 1e3)
+           / PEAK_FLOPS[torch.bfloat16],
+           "losses": [m["loss"] for m in metrics], "grad_norms": [m["grad_norm"] for m in metrics],
+           "lrs": [m["lr"] for m in metrics], "loss_first_batch_before": loss_before,
+           "loss_first_batch_after": loss_after, "launches": counts, "launches_by_route": routes,
+           "launches_per_step": train_step_launches(cfg), "state_gb":
+           {k: v / 1e9 for k, v in state_bytes.items()},
+           "peak_memory_gb": peak / 1e9,
+           "activations_gb": (peak - sum(state_bytes.values())) / 1e9}
+    # one more step under the profiler: the device-busy share
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batches[0])
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_name, n_spans = device_spans(prof)        # a step's trace is too large to keep
+    busy = sum(by_name.values()) / 1e3
+    out["profile"] = {"wall_ms": wall, "device_busy_ms": busy, "device_busy_share": busy / wall,
+                      "device_ops": n_spans, "top_kernels_ms": [
+                          (n[:100], d / 1e3) for n, d in sorted(by_name.items(),
+                                                                 key=lambda kv: -kv[1])[:20]]}
+    # two steps from the same state and batch, deterministic algorithms on
+    torch.use_deterministic_algorithms(True)
+    try:
+        twin = tree_map(torch.clone, state)
+        a, _ = step(twin, batches[1])
+        b, _ = step(state, batches[1])
+        out["same_bits_twice"] = all(torch.equal(x, y)
+                                     for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del state, twin, a, b
+    free_memory()
+    out["matmul_backward"] = check_train_matmuls(cfg, dev)
+    out["flash_backward"] = check_train_flash(cfg, dev)
+    check(counts == want, f"train launches {counts}, want {want}")
+    for name in routes:
+        check(routes[name]["wgmma"] == counts[name],
+              f"train {name} routes {routes[name]}: every launch on wgmma")
+    check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
+          f"train losses or grad norms not finite: {out}")
+    check(loss_after < loss_before, f"the first batch's loss did not fall: {out}")
+    check(out["same_bits_twice"], "two train steps from one state differ")
+    return out
+
+
+def phase_train_replay(dev, seed) -> dict:
+    """``train`` twice from one seed, the second with failures injected:
+    bit-identical final parameters (deterministic algorithms on)."""
+    kw = dict(smoke=False, steps=REPLAY_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+              ckpt_every=REPLAY_EVERY, seed=seed, device=dev, layers=REPLAY_LAYERS)
+    torch.use_deterministic_algorithms(True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        reset_counts()
+        a = train(ARCH, ckpt_dir=str(tmp / "a"), **kw)
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / "a" / f"step_{REPLAY_STEPS:09d}")
+                         .iterdir())
+        shutil.rmtree(tmp / "a")
+        b = train(ARCH, ckpt_dir=str(tmp / "b"), inject_failures=REPLAY_FAILURES, **kw)
+        counts, routes = read_counts(), read_routes()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(a["state"]["params"]),
+                                                 tree_leaves(b["state"]["params"])))
+    out = {"layers": REPLAY_LAYERS, "steps": REPLAY_STEPS, "ckpt_every": REPLAY_EVERY,
+           "inject_failures": {str(k): v for k, v in REPLAY_FAILURES.items()},
+           "restarts": b["restarts"], "final_step": [a["final_step"], b["final_step"]],
+           "bit_identical_params": same, "checkpoint_gb": ckpt_bytes / 1e9,
+           "uninterrupted": {"wall_s": a["wall_s"], "ckpt": a["ckpt_timings"],
+                             "losses": a["losses"]},
+           "with_failures": {"wall_s": b["wall_s"], "ckpt": b["ckpt_timings"],
+                             "losses": b["losses"]},
+           "launches": counts, "launches_by_route": routes}
+    del a, b
+    free_memory()
+    check(out["restarts"] == len(REPLAY_FAILURES), f"replay restarts: {out}")
+    check(out["final_step"] == [REPLAY_STEPS] * 2, f"replay steps: {out}")
+    check(same, f"replayed training gave other parameters: {out}")
+    for name in routes:
+        check(routes[name]["wgmma"] == counts[name],
+              f"replay {name} routes {routes[name]}: every launch on wgmma")
+    return out
+
+
+def grad_rel_l2(gk, gp) -> dict:
+    return {n: rel_l2(a, b) for (n, a), (_, b) in zip(named_leaves(gk), named_leaves(gp))}
+
+
+def grads_vs_plain(cfg, params, batch, faults) -> dict:
+    lk, _, gk = grads_of(cfg, params, batch)
+    lp, _, gp = grads_of(cfg, params, batch, kernels=False)
+    errs = grad_rel_l2(gk, gp)
+    del gk
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    out = {"loss": float(lk), "loss_plain": float(lp), "max_rel_l2": worst[0][1],
+           "worst_leaves": worst[:5], "leaves": len(errs)}
+    planted = {}
+    for name in faults:
+        with patched(*GRAD_FAULTS[name]):
+            _, _, gf = grads_of(cfg, params, batch)
+        planted[name] = max(grad_rel_l2(gf, gp).values())
+        del gf
+    if planted:
+        out["planted_faults"] = planted
+    del gp
+    free_memory()
+    return out
+
+
+def time_ssd_backward(cfg, dev) -> dict:
+    """ssd_scan's backward (``ssd_chunk_vjp``: ssd_chunk_ref recomputed) at
+    one layer's shape in train_grads, beside the kernel forward."""
+    H = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+    gen = torch.Generator(dev).manual_seed(13)
+    ins = ssd_inputs(GRAD_B, TRAIN_S, H, cfg.ssm_headdim, cfg.ssm_state, dev, gen)
+    outs = ssd_chunk(*ins, cfg.ssm_chunk)
+    grads = tuple(torch.randn_like(o) for o in outs)
+    bwd = eager_ms(lambda: ssd_ops.ssd_chunk_vjp(ins, cfg.ssm_chunk, grads))
+    fwd = eager_ms(lambda: ssd_chunk(*ins, cfg.ssm_chunk))
+    del ins, outs, grads
+    free_memory()
+    return {"unit": (f"one layer at B={GRAD_B}, S={TRAIN_S}, H={H}, P={cfg.ssm_headdim}, "
+                     f"N={cfg.ssm_state}, Q={cfg.ssm_chunk}, fp32"),
+            "backward_ms": bwd, "kernel_forward_ms": fwd}
+
+
+def phase_train_grads(dev, seed) -> dict:
+    out = {}
+    shape = ShapeConfig("chip_grads", TRAIN_S, GRAD_B, "train")
+    for arch in (ARCH, SSM_ARCH):
+        cfg = dataclasses.replace(get_arch(arch), n_layers=GRAD_LAYERS)
+        params = init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+        batch = to_device(batch_for_step(cfg, shape, 0, seed + 1), dev)
+        rec = {"depth": depth(cfg), "batch": GRAD_B, "seq": TRAIN_S, "remat": cfg.remat}
+        rec["bfloat16"] = grads_vs_plain(cfg, params, batch, ())
+        cfg32, params32 = dataclasses.replace(cfg, dtype="float32"), fp32_copy(params)
+        del params
+        free_memory()
+        rec["float32"] = grads_vs_plain(cfg32, params32, batch, ARCH_GRAD_FAULTS[arch])
+        del params32
+        free_memory()
+        out[arch] = rec
+    out["ssd_backward"] = time_ssd_backward(get_arch(SSM_ARCH), dev)
+    for arch, limits in TRAIN_GRAD_REL_L2.items():
+        out[arch]["limits"] = limits
+        for dtype, limit in limits.items():
+            check(out[arch][dtype]["max_rel_l2"] <= limit,
+                  f"{arch} {dtype} gradients, kernel vs plain path: {out[arch][dtype]}")
+        for name, err in out[arch]["float32"]["planted_faults"].items():
+            check(err > limits["float32"],
+                  f"{arch}: the fp32 gradient limit passes a planted fault ({name}): {err}")
+    return out
+
+
+def kernels_line(cfgs, checks, paths, routes, trained, grads) -> dict:
     """``paths``: each main path's launch counts, by phase; ``routes``: the
-    same per route, for the kernels that have routes."""
+    same per route, for the kernels that have routes; ``trained`` and
+    ``grads``: the train_tinyllama and train_grads results (each kernel's
+    training launches and its backward's time)."""
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     by_route = {n: {r: sum(p[n][r] for p in routes.values()) for r in rs}
                 for n, rs in next(iter(routes.values())).items()}
@@ -1256,7 +1687,12 @@ def kernels_line(cfgs, checks, paths, routes) -> dict:
          "prefill_library_ms": tiny["prefill_m2048"]["library_ms"],
          "prefill_bound_ms": tiny["prefill_m2048"]["bound_ms"],
          "prefill_bound_by": tiny["prefill_m2048"]["bound_by"],
-         "mixes": mixes, "launches_by_path": {k: p["ltrf_matmul"] for k, p in paths.items()}},
+         "mixes": mixes, "launches_by_path": {k: p["ltrf_matmul"] for k, p in paths.items()},
+         "training": {"launches_per_step": trained["launches_per_step"]["ltrf_matmul"],
+                      "launches_by_route": trained["launches_by_route"]["ltrf_matmul"],
+                      "backward": "two kernel products (matmul_vjp)",
+                      "backward_per_step": {k: v for k, v in trained["matmul_backward"].items()
+                                            if k != "shapes"}}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:64",
@@ -1276,7 +1712,10 @@ def kernels_line(cfgs, checks, paths, routes) -> dict:
          "by_arch": {r["arch"]: {k: r[k] for k in ("H", "KV", "d", "ms", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms", "max_abs_err")}
                      for r in checks["flash_attention"][4:]},
-         "launches_by_path": {k: p["flash_attention"] for k, p in paths.items()}},
+         "launches_by_path": {k: p["flash_attention"] for k, p in paths.items()},
+         "training": {"launches_per_step": trained["launches_per_step"]["flash_attention"],
+                      "launches_by_route": trained["launches_by_route"]["flash_attention"],
+                      "backward": "plain recompute (flash_vjp)", **trained["flash_backward"]}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:61",
@@ -1292,7 +1731,8 @@ def kernels_line(cfgs, checks, paths, routes) -> dict:
          HYBRID_ARCH: {"unit": f"one launch at N={ssd_hybrid['N']}, otherwise as above",
                        **{k: ssd_hybrid[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                      "bound_tc_ms", "max_abs_err")}},
-         "launches_by_path": {k: p["ssd_scan"] for k, p in paths.items()}},
+         "launches_by_path": {k: p["ssd_scan"] for k, p in paths.items()},
+         "training": {"backward": "plain recompute (ssd_chunk_vjp)", **grads["ssd_backward"]}},
     ]}
 
 
@@ -1341,9 +1781,14 @@ def main() -> int:
         del params
         free_memory()
     run("prefill_dense_wide", phase_prefill_dense_wide, cfgs[7:], dev, args.seed)
-    paths["prefill_dense_wide"] = results["prefill_dense_wide"]["launches"]
-    routes["prefill_dense_wide"] = results["prefill_dense_wide"]["launches_by_route"]
-    line = kernels_line(cfgs, results["kernel_checks"], paths, routes)
+    run("train_tinyllama", phase_train_tinyllama, cfgs[0], dev, args.seed)
+    run("train_replay", phase_train_replay, dev, args.seed)
+    for name in ("prefill_dense_wide", "train_tinyllama", "train_replay"):
+        paths[name] = results[name]["launches"]
+        routes[name] = results[name]["launches_by_route"]
+    run("train_grads", phase_train_grads, dev, args.seed)
+    line = kernels_line(cfgs, results["kernel_checks"], paths, routes,
+                        results["train_tinyllama"], results["train_grads"])
     for k in line["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
     out_dir = ROOT / "chiprun_out"

@@ -1,18 +1,21 @@
 """PyTorch/CUDA port of the LTRF model stack for one NVIDIA H100.
 
 Mirrors the layout of the JAX package ``repro`` (``configs/``, ``core/``,
-``kernels/<name>/``, ``models/``, ``serving/``, ``launch/``) so each module's
+``kernels/<name>/``, ``models/``, ``optim/``, ``runtime/``, ``checkpoint/``,
+``data/``, ``distributed/``, ``serving/``, ``launch/``) so each module's
 counterpart is found by path.  The port imports ``torch`` and ``numpy`` only;
 the modules it shares in spirit with ``repro`` (the LTRF compiler core, the
-request scheduler and the page allocator) are kept here as copies.
+request scheduler, the page allocator and the data pipeline) are kept here
+as copies.
 
-Entry points (``models.lm.init_params``, ``serving.ServingEngine``,
-``launch.serve.serve``) run on ``device="cuda"`` unless the caller passes
-``device="cpu"``.  On a CUDA tensor every dense projection goes through the
-hand-written ``ltrf_matmul`` kernel, prefill attention through the
-``flash_attention`` kernel and the Mamba2 chunked scan through the
-``ssd_scan`` kernel (``csrc/``); on a CPU tensor the same wrappers run their
-plain PyTorch versions.
+Entry points (``models.lm.init_params``, ``runtime.make_train_state``,
+``serving.ServingEngine``, ``launch.serve.serve``, ``launch.train.train``)
+run on ``device="cuda"`` unless the caller passes ``device="cpu"``.  On a
+CUDA tensor every dense projection goes through the hand-written
+``ltrf_matmul`` kernel, prefill attention through the ``flash_attention``
+kernel and the Mamba2 chunked scan through the ``ssd_scan`` kernel
+(``csrc/``), each differentiable through an autograd Function; on a CPU
+tensor the same wrappers run their plain PyTorch versions.
 """
 import torch
 

@@ -1,9 +1,10 @@
-"""Architecture configuration (port of ``repro.configs.base``).
+"""Architecture and shape configuration (port of ``repro.configs.base``).
 
-``ArchConfig`` carries the same fields as the JAX package's; its dtype glue is
-``torch_dtype`` in place of ``jdtype``.  The dry-run's shapes, ``input_specs``
-and the analytic parameter counts are not needed by the serving slice and
-are not part of this package yet (see ROADMAP queue 1 item 10).
+``ArchConfig`` carries the same fields as the JAX package's, with the same
+analytic parameter counts; its dtype glue is ``torch_dtype`` in place of
+``jdtype``.  ``ShapeConfig``, ``SHAPES``, ``cell_is_runnable`` and
+``smoke_shape`` are copies.  The dry-run's ``input_specs`` is not part of
+this package yet (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ class ArchConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     kv_dtype: str = ""          # decode KV-cache dtype ("" -> dtype)
-    remat: str = "full"         # JAX compile-time choice; unused by the port
+    remat: str = "full"         # none | block | full: recompute each block in backward
     scan_layers: bool = True    # JAX compile-time choice; unused by the port
     q_block: int = 512          # plain attention's q-block
     source: str = ""
@@ -55,3 +56,87 @@ class ArchConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks + head)."""
+        D, F, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
+        H, KV, hd = self.n_heads, self.n_kv_heads, self.hd
+        n = V * D  # embed
+        if self.n_codebooks:
+            n = self.n_codebooks * V * D
+        attn = D * H * hd + 2 * D * KV * hd + H * hd * D
+        mlp = 3 * D * F
+        if self.family == "moe":
+            per_layer = attn + self.n_experts * mlp + D * self.n_experts + 2 * D
+            n += L * per_layer
+        elif self.family == "ssm":
+            n += L * self._mamba_params() + L * D
+        elif self.family == "hybrid":
+            n += L * self._mamba_params() + L * D
+            n += attn + mlp + 2 * D  # one shared block
+        else:
+            n += L * (attn + mlp + 2 * D)
+        n += D  # final norm
+        n += D * V * max(self.n_codebooks, 1)  # head
+        return n
+
+    def _mamba_params(self) -> int:
+        D = self.d_model
+        d_inner = self.ssm_expand * D
+        nheads = d_inner // self.ssm_headdim
+        d_in_proj = 2 * d_inner + 2 * self.ssm_state + nheads
+        return (D * d_in_proj + 4 * (d_inner + 2 * self.ssm_state)
+                + 3 * nheads + d_inner + d_inner * D)
+
+    def active_param_count(self) -> int:
+        """MoE: params touched per token (top-k experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        D, F, L = self.d_model, self.d_ff, self.n_layers
+        H, KV, hd = self.n_heads, self.n_kv_heads, self.hd
+        attn = D * H * hd + 2 * D * KV * hd + H * hd * D
+        mlp = 3 * D * F
+        n = self.vocab * D * 2
+        n += L * (attn + self.top_k * mlp + D * self.n_experts + 2 * D)
+        return n
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_is_runnable(arch: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether (arch x shape) is a defined dry-run cell."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, "full quadratic attention at 524k context: skipped per assignment"
+    return True, ""
+
+
+def smoke_shape(kind: str = "train") -> ShapeConfig:
+    if kind == "decode":
+        return ShapeConfig("smoke_decode", 64, 2, "decode")
+    return ShapeConfig("smoke_train", 64, 2, "train")

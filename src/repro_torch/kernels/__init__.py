@@ -3,5 +3,6 @@
 
 Each ``kernels/<name>/`` holds ``ref.py`` (the plain PyTorch version, run for
 CPU tensors and used as the yardstick on the card) and ``ops.py`` (the
-wrapper: checks, launch on the current stream, launch count).
+wrapper: checks, launch on the current stream, launch count, and the
+``torch.autograd.Function`` that gives it a backward).
 """

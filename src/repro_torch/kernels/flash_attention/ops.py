@@ -8,6 +8,13 @@ block: the kernel masks the ragged edge.  The route follows from the dtype:
 ``"wgmma"`` for bf16 (TMA ring feeding wgmma), ``"fp32"`` for float32 (CUDA
 cores).  ``flash_attention.launches`` counts the launches and
 ``flash_attention.launches_by_route`` counts them per route.
+
+Gradients: where grad is enabled and q, k or v requires it, the call runs
+inside ``FlashAttentionFn``, whose forward launches the kernel and whose
+backward (``flash_vjp``) recomputes the plain version under autograd on
+detached inputs and returns its gradients: the GQA group sum and the causal
+mask come with it.  The JAX package has no backward kernel either (it
+differentiates XLA einsums); a Hopper backward kernel is later work.
 """
 from __future__ import annotations
 
@@ -36,7 +43,38 @@ def _library():
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B, H, S, d); k/v: (B, KV, S, d) -> (B, H, S, d) in q's dtype."""
+    """q: (B, H, S, d); k/v: (B, KV, S, d) -> (B, H, S, d) in q's dtype;
+    differentiable."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal)
+    return _attend(q, k, v, causal)
+
+
+def flash_vjp(q, k, v, causal: bool, do):
+    """(dq, dk, dv): the plain version recomputed under autograd (its fp32
+    scores, B x H x S x S, live only for this call)."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out = attention_ref(q, k, v, causal)
+        return torch.autograd.grad(out, (q, k, v), do)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention``: the kernel forward, the plain recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return _attend(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        return (*flash_vjp(*ctx.saved_tensors, ctx.causal, do), None)
+
+
+def _attend(q, k, v, causal: bool) -> torch.Tensor:
+    """The plain version for CPU tensors, else one launch of the kernel."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attention_ref(q, k, v, causal)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -76,4 +114,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES.values(), 0)
 
-__all__ = ["attention_ref", "flash_attention"]
+__all__ = ["FlashAttentionFn", "attention_ref", "flash_attention", "flash_vjp"]

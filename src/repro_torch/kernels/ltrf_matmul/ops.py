@@ -17,6 +17,13 @@ inside a thread block cluster, or past 8 slices by the last CTA of each tile)
 and ``"fp32"`` for float32 (cp.async ring, FFMA).
 ``ltrf_matmul.launches`` counts the launches and
 ``ltrf_matmul.launches_by_route`` counts them per route.
+
+Gradients: where grad is enabled and an operand requires it, the product
+runs inside ``LtrfMatmulFn`` (a ``torch.autograd.Function``), whose backward
+is the two products of a matmul on the same wrapper: ``dX = dY @ w^T``
+(M x N @ N x K) and ``dW = x^T @ dY`` (K x M @ M x N).  The kernel takes
+contiguous operands, so each transpose is copied first.  On CPU tensors the
+Function's forward and backward run ``matmul_ref`` through the same wrapper.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import ctypes
 from functools import lru_cache
 
 import torch
+import torch.nn.functional as F
 
 from ...core.plan import IntervalPlan, plan_for_matmul
 from .. import _build
@@ -225,7 +233,45 @@ def _library():
 
 
 def ltrf_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (M, K) @ w: (K, N) -> (M, N) in x's dtype."""
+    """x: (M, K) @ w: (K, N) -> (M, N) in x's dtype; differentiable.
+    Without a gradient to record (prefill, serving) it launches directly,
+    with no autograd node to build for each call."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return LtrfMatmulFn.apply(x, w)
+    return _product(x, w)
+
+
+def matmul_vjp(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, needs: tuple):
+    """(dX, dW) of ``x @ w`` for the output gradient ``dy``, each a product
+    on the kernel (None where ``needs`` says it is not wanted).  For dW the
+    M rows become the product's K, which the kernel takes only in multiples
+    of 16 bytes: x and dy get zero rows up to that, which add nothing."""
+    dy = dy.contiguous()
+    dx = _product(dy, w.t().contiguous()) if needs[0] else None
+    dw = None
+    if needs[1]:
+        pad = -x.shape[0] % (16 // x.element_size())
+        xp, dyp = (x, dy) if not pad else (F.pad(x, (0, 0, 0, pad)), F.pad(dy, (0, 0, 0, pad)))
+        dw = _product(xp.t().contiguous(), dyp)
+    return dx, dw
+
+
+class LtrfMatmulFn(torch.autograd.Function):
+    """``ltrf_matmul`` with its backward on the same kernel (``matmul_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _product(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return matmul_vjp(x, w, dy, ctx.needs_input_grad)
+
+
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One product: the plain version for CPU tensors, else one launch."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return matmul_ref(x, w)
     if x.device.type != "cuda" or w.device != x.device:
@@ -269,4 +315,5 @@ def ltrf_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 ltrf_matmul.launches = 0
 ltrf_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
 
-__all__ = ["ltrf_matmul", "matmul_plan", "matmul_ref", "pick_blocks", "split_k"]
+__all__ = ["LtrfMatmulFn", "ltrf_matmul", "matmul_plan", "matmul_ref", "matmul_vjp",
+           "pick_blocks", "split_k"]

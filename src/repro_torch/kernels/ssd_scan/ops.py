@@ -13,6 +13,13 @@ rows past S as the zero padding (dt = x = B = C = 0).
 (B, H, P, N) states and the ``y_inter`` product in torch, as the JAX wrapper
 keeps them outside Pallas.  ``ssd_scan.launches`` counts the kernel's
 launches.
+
+Gradients: where grad is enabled and an input requires it, ``ssd_chunk``
+runs inside ``SsdChunkFn``, whose forward launches the kernel and whose
+backward (``ssd_chunk_vjp``) recomputes ``ssd_chunk_ref`` under autograd on
+the detached inputs (in their own dtypes, so each gradient comes back in its
+input's dtype); an output with no gradient counts as zeros.  The recurrence
+``chunk_carry`` and the ``y_inter`` product stay plain autograd.
 """
 from __future__ import annotations
 
@@ -40,7 +47,43 @@ def _library():
 def ssd_chunk(x, dt, A, Bm, Cm, chunk: int):
     """x: (B,S,H,P); dt: (B,S,H); A: (H,); Bm/Cm: (B,S,N) -> (y_intra
     (B,nc,H,Q,P), states (B,nc,H,P,N), in_decay (B,nc,H,Q), chunk_decay
-    (B,nc,H,1)), all fp32, with Q = ``chunk`` and nc = ceil(S / Q)."""
+    (B,nc,H,1)), all fp32, with Q = ``chunk`` and nc = ceil(S / Q);
+    differentiable."""
+    ins = (x, dt, A, Bm, Cm)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return SsdChunkFn.apply(*ins, chunk)
+    return _chunk(*ins, chunk)
+
+
+def ssd_chunk_vjp(ins, chunk: int, grads):
+    """Gradients of (x, dt, A, Bm, Cm) for the four outputs' gradients
+    ``grads`` (None where an output has none): ``ssd_chunk_ref`` recomputed
+    under autograd on the detached inputs."""
+    pairs = [i for i, g in enumerate(grads) if g is not None]
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in ins]
+        outs = ssd_chunk_ref(*ins, chunk)
+        return torch.autograd.grad([outs[i] for i in pairs], ins,
+                                   [grads[i] for i in pairs], allow_unused=True)
+
+
+class SsdChunkFn(torch.autograd.Function):
+    """``ssd_chunk``: the kernel forward, the plain recompute backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return _chunk(x, dt, A, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (*ssd_chunk_vjp(ctx.saved_tensors, ctx.chunk, grads), None)
+
+
+def _chunk(x, dt, A, Bm, Cm, chunk: int):
+    """The plain version for CPU tensors, else one launch of the kernel."""
     ins = (x, dt, A, Bm, Cm)
     if all(t.device.type == "cpu" for t in ins):
         return ssd_chunk_ref(x, dt, A, Bm, Cm, chunk)
@@ -108,4 +151,4 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 64):
 
 ssd_scan.launches = 0
 
-__all__ = ["ssd_chunk", "ssd_chunk_ref", "ssd_ref", "ssd_scan"]
+__all__ = ["SsdChunkFn", "ssd_chunk", "ssd_chunk_ref", "ssd_chunk_vjp", "ssd_ref", "ssd_scan"]

@@ -10,6 +10,14 @@ attention and the Mamba2 chunked scan then run on the hand-written kernels;
 ``kernels=False`` is the plain PyTorch path with the same math.  The MoE
 router and expert products are plain PyTorch on both paths (``moe.py``).
 
+Where a backward can reach a block (grad enabled, and its input or a weight
+requiring grad), it runs under ``torch.utils.checkpoint`` (non-reentrant)
+unless ``cfg.remat`` is ``"none"``: backward recomputes the block from its
+input, kernels included (the reference's ``_maybe_remat``).  ``"full"``
+saves nothing inside a block, as the reference's does; ``"block"``, which in
+the reference keeps the block's products, recomputes them here too.
+Otherwise (prefill, serving) the blocks run as they are.
+
 An ``lm_head`` whose width (vocab, or n_codebooks * vocab) is not a multiple
 of 8 is held with zero columns up to a multiple of 64 (``pad_head``), so its
 rows are a multiple of 16 bytes, as the matmul kernel and TMA need; every
@@ -26,9 +34,11 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
+from ..tree import tree_leaves
 from .layers import (
     _init, attention_block, attention_decode, cross_entropy, embed,
     init_attention, init_embedding, init_mlp, init_rms, matmul, mlp_block,
@@ -164,6 +174,16 @@ def _shared_block(cfg: ArchConfig, p, x, positions, kernels):
     return x + mlp_block(p["mlp"], h, kernels)
 
 
+def _remat(cfg: ArchConfig, block, *args):
+    """``block(*args)``, under ``checkpoint`` when ``cfg.remat`` asks for it
+    and a backward can reach the block: grad enabled and one of its tensors
+    (its input or a weight) requiring grad (see the module docstring)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in tree_leaves(list(args)) if isinstance(t, torch.Tensor)):
+        return block(*args)
+    return checkpoint(block, *args, use_reentrant=False)
+
+
 def forward(params, cfg: ArchConfig, x, positions, kernels: bool = True):
     """Backbone over embedded inputs x: (B, S, D) -> ((B, S, D), aux), aux
     the sum of the MoE layers' load-balance losses (0 for other families)."""
@@ -172,13 +192,13 @@ def forward(params, cfg: ArchConfig, x, positions, kernels: bool = True):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
         if cfg.family in ATTN_FAMILIES:
-            x, a = _dense_block(cfg, p, x, positions, kernels)
+            x, a = _remat(cfg, _dense_block, cfg, p, x, positions, kernels)
             if a is not None:
                 aux = aux + a
             continue
-        x = _ssm_block(cfg, p, x, kernels)
+        x = _remat(cfg, _ssm_block, cfg, p, x, kernels)
         if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
-            x = _shared_block(cfg, params["shared_attn"], x, positions, kernels)
+            x = _remat(cfg, _shared_block, cfg, params["shared_attn"], x, positions, kernels)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 

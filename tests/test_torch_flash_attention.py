@@ -111,3 +111,65 @@ def test_split_p_keeps_the_wgmma_kernel_within_the_flash_limits(cfg):
     single = _wgmma_numerics(q, k, v, True, split_p=False)
     assert not torch.allclose(single.float(), want, **FLASH_TOL)
     assert rel_l2(single) <= FLASH_REL_L2
+
+
+# ---------------------------------------------------------------------------
+# the autograd Function (backward: the plain version recomputed)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+
+
+def _grads(fn, q, k, v, do, causal):
+    ins = [to_torch(a).requires_grad_() for a in (q, k, v)]
+    fn(*ins, causal=causal).backward(to_torch(do))
+    return [t.grad for t in ins]
+
+
+def _group_sum_dropped(q, k, v, causal, do):
+    """dk, dv taken from the first query head of each group, not summed."""
+    rep = q.shape[1] // k.shape[1]
+    with torch.enable_grad():
+        qd = q.detach().requires_grad_()
+        ke, ve = (t.detach().repeat_interleave(rep, dim=1).requires_grad_() for t in (k, v))
+        dq, dke, dve = torch.autograd.grad(attention_ref(qd, ke, ve, causal), (qd, ke, ve), do)
+    return dq, dke[:, ::rep] * rep, dve[:, ::rep] * rep
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_function_grads_match_plain_autograd_and_jax(group, causal):
+    import jax
+    q, k, v = _qkv(2, 4, 4 // group, 40, 16, seed=5)
+    do = randn(9, q.shape)
+    got = _grads(flash_attention, q, k, v, do, causal)
+    plain = _grads(attention_ref, q, k, v, do, causal)
+    for a, b in zip(got, plain):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    _, vjp = jax.vjp(lambda *a: jax_attention_ref(*a, causal=causal),
+                     *(to_jax(a) for a in (q, k, v)))
+    for a, b in zip(got, vjp(to_jax(do))):
+        assert_close(a, b, "float32")
+
+
+@pytest.mark.parametrize("fault", ["group_sum_dropped", "not_causal"])
+@pytest.mark.parametrize("group", [2, 4])
+def test_function_check_catches_planted_faults(monkeypatch, group, fault):
+    q, k, v = _qkv(2, 4, 4 // group, 40, 16, seed=5)
+    do = randn(9, q.shape)
+    plain = _grads(attention_ref, q, k, v, do, True)
+    bad = (_group_sum_dropped if fault == "group_sum_dropped"
+           else lambda q, k, v, causal, do: real(q, k, v, False, do))
+    real = flash_ops.flash_vjp
+    monkeypatch.setattr(flash_ops, "flash_vjp", bad)
+    got = _grads(flash_attention, q, k, v, do, True)
+    assert not all(torch.allclose(a, b, rtol=2e-4, atol=1e-4) for a, b in zip(got, plain))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_function_grads_keep_the_input_dtype(dtype):
+    q, k, v = (to_torch(a, dtype).requires_grad_() for a in _qkv(1, 4, 2, 24, 16))
+    out = flash_attention(q, k, v)
+    assert out.grad_fn.name() == "FlashAttentionFnBackward"
+    out.float().square().sum().backward()
+    assert all(t.grad.dtype == getattr(torch, dtype) for t in (q, k, v))

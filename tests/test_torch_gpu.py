@@ -341,3 +341,172 @@ def test_new_family_smoke_model_kernel_path_matches_plain_path(dev, arch, vocab)
         lk, ck = lm.decode_step(params, ck, toks, step, cfg)
         lp, cp = lm.decode_step(params, cp, toks, step, cfg, kernels=False)
         torch.testing.assert_close(lk, lp, rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# training: gradients through the kernels' autograd Functions
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.ltrf_matmul import ops as mm_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.runtime.train_step import grads_of  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
+
+TRAIN_ARCHS = ["tinyllama-1.1b", "mamba2-1.3b", "zamba2-1.2b", "granite-moe-3b-a800m"]
+# kernel path against plain path, per gradient leaf, as a relative L2 (the
+# largest over the leaves), per dtype and family, each between the sound
+# reading and the weakest planted fault's (NVIDIA H100 80GB HBM3, 700 W;
+# the tests print their readings under ``-s``).  fp32, where the paths
+# differ by sum order: sound 7.9e-7 (dense), 7.0e-7 (moe), 1.3e-5 (ssm) and
+# 3.7e-4 (hybrid: zamba2's A_log and dt_bias gradients sum ssd_scan's small
+# bf16x3 rounding over every position).  bf16, where the paths round at
+# other points: sound 1.1e-4, 3.4e-3, 3.5e-3 and 2.0e-2, with the MoE
+# routing pinned (see _grads_both_paths).  The faults of FAMILY_FAULTS read
+# 0.18-1.0 in both dtypes, the weakest a dropped in_decay gradient (0.18 on
+# the hybrid, 0.33 on the ssm model), the others >= 0.82.
+GRAD_REL_L2 = {torch.float32: {"dense": 1e-4, "moe": 1e-4, "ssm": 2e-3, "hybrid": 2e-3},
+               torch.bfloat16: {"dense": 5e-2, "moe": 5e-2, "ssm": 5e-2, "hybrid": 5e-2}}
+
+_real_matmul_vjp = mm_ops.matmul_vjp
+_real_flash_vjp = flash_ops.flash_vjp
+_real_ssd_vjp = ssd_ops.ssd_chunk_vjp
+
+
+def _dw_zeroed(x, w, dy, needs):
+    dx, dw = _real_matmul_vjp(x, w, dy, needs)
+    return dx, None if dw is None else torch.zeros_like(dw)
+
+
+# planted faults in the kernels' backward (chip_smoke.py's): name -> (module,
+# attribute, replacement), and the faults each family's backward can reach
+GRAD_FAULTS = {
+    "matmul_dw_zeroed": (mm_ops, "matmul_vjp", _dw_zeroed),
+    "flash_not_causal": (flash_ops, "flash_vjp",
+                         lambda q, k, v, causal, do: _real_flash_vjp(q, k, v, False, do)),
+    "ssd_in_decay_dropped": (ssd_ops, "ssd_chunk_vjp", lambda ins, chunk, g: _real_ssd_vjp(
+        ins, chunk, (g[0], g[1], None, g[3]))),
+}
+FAMILY_FAULTS = {"dense": ("matmul_dw_zeroed", "flash_not_causal"),
+                 "moe": ("matmul_dw_zeroed", "flash_not_causal"),
+                 "ssm": ("matmul_dw_zeroed", "ssd_in_decay_dropped"),
+                 "hybrid": ("matmul_dw_zeroed", "flash_not_causal", "ssd_in_decay_dropped")}
+
+
+def _train_batch(cfg, dev, B=2, S=40):
+    g = torch.Generator(dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (B, S), device=dev, generator=g)
+    return {"tokens": toks, "labels": toks}
+
+
+def _grad_rel_l2(a, b) -> list:
+    return [float((x.float() - y.float()).norm() / y.float().norm().clamp_min(1e-30))
+            for x, y in zip(tree_leaves(a), tree_leaves(b))]
+
+
+def _grads_both_paths(dev, arch, dtype, monkeypatch, fault=None):
+    """(kernel-path loss, plain-path loss, per-leaf relative L2s, kernel-path
+    grads) of the smoke model under remat, ``fault`` planted in the kernel
+    path's backward.  The MoE router's top-k is pinned to the plain path's
+    choices (recorded there, replayed in the same call order on the kernel
+    path), so a near-tie that the two paths' rounding breaks apart does not
+    send a token to another expert."""
+    cfg = dataclasses.replace(get_smoke(arch), dtype=str(dtype).split(".")[-1], remat="full")
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    batch = _train_batch(cfg, dev)
+    real_gates, chosen, replayed = moe.top_k_gates, [], []
+
+    def recording(probs, top_k):
+        gates, idx = real_gates(probs, top_k)
+        chosen.append(idx)
+        return gates, idx
+
+    def replaying(probs, top_k):
+        idx = chosen[len(replayed)]
+        replayed.append(idx)
+        vals = probs.gather(-1, idx)
+        return vals / (vals.sum(-1, keepdim=True) + 1e-9), idx
+
+    with monkeypatch.context() as m:
+        m.setattr(moe, "top_k_gates", recording)
+        lp, _, gp = grads_of(cfg, params, batch, kernels=False)
+    with monkeypatch.context() as m:
+        m.setattr(moe, "top_k_gates", replaying)
+        if fault:
+            m.setattr(*GRAD_FAULTS[fault])
+        lk, _, gk = grads_of(cfg, params, batch)
+    assert len(replayed) == len(chosen)
+    return lk, lp, _grad_rel_l2(gk, gp), gk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_kernel_path_gradients_match_plain_path(dev, arch, dtype, monkeypatch):
+    lk, lp, errs, gk = _grads_both_paths(dev, arch, dtype, monkeypatch)
+    print(f"GRADS sound {arch} {dtype} {max(errs):.3e}")
+    assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(gk))
+    assert max(errs) <= GRAD_REL_L2[dtype][get_smoke(arch).family], errs
+    torch.testing.assert_close(lk, lp, rtol=2e-2 if dtype == torch.bfloat16 else 1e-4, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,fault", [(a, f) for a in TRAIN_ARCHS
+                                        for f in FAMILY_FAULTS[get_smoke(a).family]])
+def test_gradient_limits_fail_planted_faults(dev, arch, fault, dtype, monkeypatch):
+    """Each backward fault the family can reach reads above its limit."""
+    _, _, errs, _ = _grads_both_paths(dev, arch, dtype, monkeypatch, fault)
+    print(f"GRADS fault {arch} {dtype} {fault} {max(errs):.3e}")
+    assert max(errs) > GRAD_REL_L2[dtype][get_smoke(arch).family], errs
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_backward_matmuls_take_the_kernel_routes(dev, arch, monkeypatch):
+    """Every ltrf_matmul launch of a train step's gradient -- forward, remat
+    recompute and both backward products -- is counted on wgmma, or on
+    decode where its M <= 64."""
+    cfg = dataclasses.replace(get_smoke(arch), remat="full")
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    seen = []
+    real = mm_ops._product
+
+    def product(x, w):
+        before = dict(ltrf_matmul.launches_by_route)
+        out = real(x, w)
+        after = ltrf_matmul.launches_by_route
+        seen.append((x.shape[0], [r for r in after if after[r] != before[r]]))
+        return out
+
+    monkeypatch.setattr(mm_ops, "_product", product)
+    batch = _train_batch(cfg, dev, B=4, S=64)
+    with torch.no_grad():
+        lm.loss_fn(params, batch, cfg)
+    forward = len(seen)
+    seen.clear()
+    grads_of(cfg, params, batch)
+    assert all(routes == ["wgmma" if M > 64 else "decode"] for M, routes in seen), seen
+    # the forward, the blocks' recompute (all but the head) and two products each
+    assert len(seen) == forward + (forward - 1) + 2 * forward
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_backward_reaches_every_weight(dev, arch):
+    """loss.backward() with grad enabled: no weight's .grad is left None."""
+    cfg = get_smoke(arch)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    for t in tree_leaves(params):
+        t.requires_grad_()
+    loss, _ = lm.loss_fn(params, _train_batch(cfg, dev), cfg)
+    loss.backward()
+    assert all(t.grad is not None for t in tree_leaves(params))
+
+
+def test_every_kernel_output_carries_a_backward(dev):
+    x = torch.randn(128, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.randn(64, 128, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    assert ltrf_matmul(x, w).grad_fn is not None
+    q = torch.randn(1, 4, 64, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.randn(1, 2, 64, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    assert flash_attention(q, kv, kv).grad_fn is not None
+    ins = [t.requires_grad_() for t in _ssd_inputs(1, 64, 4, 16, 16, dev)]
+    assert all(o.grad_fn is not None for o in ssd_chunk(*ins, 32))

@@ -222,3 +222,58 @@ def test_split_k_emulation_matches_ref(shape):
     assert split_k(M, K, N) > 1
     torch.testing.assert_close(got.float(), matmul_ref(x, w).float(), rtol=3e-2, atol=8e-2)
     assert torch.equal(got, emulate())
+
+
+# ---------------------------------------------------------------------------
+# the autograd Function (backward: dX = dY w^T and dW = x^T dY on the wrapper)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.ltrf_matmul import ops as mm_ops  # noqa: E402
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 3), (8, 16, 24), (1, 12, 12)])
+def test_function_gradcheck_float64(shape):
+    M, K, N = shape
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(M, K, dtype=torch.float64, generator=g, requires_grad=True)
+    w = torch.randn(K, N, dtype=torch.float64, generator=g, requires_grad=True)
+    assert torch.autograd.gradcheck(ltrf_matmul, (x, w))
+    assert ltrf_matmul(x, w).grad_fn.name() == "LtrfMatmulFnBackward"
+
+
+def test_function_gradcheck_catches_a_transposed_dw(monkeypatch):
+    real = mm_ops.matmul_vjp
+
+    def transposed(x, w, dy, needs):
+        dx, dw = real(x, w, dy, needs)
+        return dx, None if dw is None else dw.t()
+
+    monkeypatch.setattr(mm_ops, "matmul_vjp", transposed)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(6, 9, dtype=torch.float64, generator=g, requires_grad=True)
+    w = torch.randn(9, 9, dtype=torch.float64, generator=g, requires_grad=True)
+    assert not torch.autograd.gradcheck(ltrf_matmul, (x, w), raise_exception=False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_function_grads_match_jax(dtype):
+    import jax
+    x, w, dy = randn(0, (24, 40)), randn(1, (40, 16)), randn(2, (24, 16))
+    tx, tw = (to_torch(a, dtype).requires_grad_() for a in (x, w))
+    ltrf_matmul(tx, tw).backward(to_torch(dy, dtype))
+    _, vjp = jax.vjp(jax_matmul_ref, to_jax(x, dtype), to_jax(w, dtype))
+    jdx, jdw = vjp(to_jax(dy, dtype))
+    assert tx.grad.dtype == getattr(torch, dtype) and tw.grad.dtype == getattr(torch, dtype)
+    assert_close(tx.grad, jdx, dtype)
+    assert_close(tw.grad, jdw, dtype)
+
+
+def test_function_only_where_a_gradient_is_wanted():
+    x, w = torch.randn(4, 8), torch.randn(8, 8)
+    assert ltrf_matmul(x, w).grad_fn is None
+    w.requires_grad_()
+    with torch.no_grad():
+        assert ltrf_matmul(x, w).grad_fn is None
+    out = ltrf_matmul(x, w)
+    out.sum().backward()
+    assert x.grad is None and w.grad is not None

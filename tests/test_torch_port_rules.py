@@ -1,4 +1,5 @@
-"""Rules the PyTorch port keeps: it imports neither jax nor the JAX package,
+"""Rules the PyTorch port keeps: it imports neither jax nor the JAX package
+(nor ``ml_dtypes``, which the card's machine does not have),
 its entry points default to the CUDA card (and raise without one), and its
 kernel wrappers take their plain path only for CPU tensors."""
 import ast
@@ -35,7 +36,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax", "ml_dtypes"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 

@@ -244,3 +244,81 @@ def test_bf16x3_keeps_the_kernel_within_the_ssd_limits():
     assert rel_tf32 > 2 * SSD_REL_L2
     rel_bf16, _ = _ssd_limits(_ssd_kernel_numerics(x, dt, A, Bm, Cm, Q, "bf16"), want)
     assert rel_bf16 > 10 * SSD_REL_L2
+
+
+# ---------------------------------------------------------------------------
+# the autograd Function (backward: ssd_chunk_ref recomputed)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+
+def out_shapes(B, S, H, P, N, Q):
+    """The four chunk outputs' shapes."""
+    nc = -(-S // Q)
+    return [(B, nc, H, Q, P), (B, nc, H, P, N), (B, nc, H, Q), (B, nc, H, 1)]
+
+
+def _chunk_grads(fn, arrays, chunk, cots, dtype="float32"):
+    ins = [to_torch(a, "float32" if i == 2 else dtype).requires_grad_()
+           for i, a in enumerate(arrays)]
+    outs = fn(*ins, chunk)
+    loss = sum((o * to_torch(c)).sum() for o, c in zip(outs, cots) if c is not None)
+    loss.backward()
+    return [t.grad for t in ins]
+
+
+@pytest.mark.parametrize("used", [(0, 1, 2, 3), (0,), (2, 3), (1,)],
+                         ids=["all", "y", "decays", "states"])
+def test_chunk_function_matches_plain_autograd(used):
+    shape = (2, 40, 3, 8, 16)
+    arrays = _inputs(*shape)
+    cots = [randn(20 + i, s) if i in used else None
+            for i, s in enumerate(out_shapes(*shape, 16))]
+    got = _chunk_grads(ssd_chunk, arrays, 16, cots)
+    want = _chunk_grads(ssd_chunk_ref, arrays, 16, cots)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None or not a.any()
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_scan_grads_match_jax_recurrence():
+    """The chunked scan's gradients (kernel Function + chunk_carry + y_inter)
+    against jax.vjp of the JAX package's sequential recurrence."""
+    import jax
+    arrays = _inputs(2, 48, 3, 8, 16, seed=4)
+    dy, dh = randn(30, (2, 48, 3, 8)), randn(31, (2, 3, 8, 16))
+    ins = [to_torch(a).requires_grad_() for a in arrays]
+    y, h = ssd_scan(*ins, chunk=16)
+    ((y * to_torch(dy)).sum() + (h * to_torch(dh)).sum()).backward()
+    _, vjp = jax.vjp(jax_ref, *(to_jax(a) for a in arrays))
+    for t, j in zip(ins, vjp((to_jax(dy), to_jax(dh)))):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), rtol=1e-3, atol=1e-4)
+
+
+def test_chunk_function_check_catches_a_dropped_in_decay_gradient(monkeypatch):
+    arrays = _inputs(2, 48, 3, 8, 16, seed=4)
+    dy = randn(30, (2, 48, 3, 8))
+
+    def grads():
+        ins = [to_torch(a).requires_grad_() for a in arrays]
+        (ssd_scan(*ins, chunk=16)[0] * to_torch(dy)).sum().backward()
+        return [t.grad for t in ins]
+
+    want = grads()
+    real = ssd_ops.ssd_chunk_vjp
+    monkeypatch.setattr(ssd_ops, "ssd_chunk_vjp", lambda ins, chunk, g: real(
+        ins, chunk, (g[0], g[1], None, g[3])))
+    got = grads()
+    assert not all(torch.allclose(a, b, **FP32) for a, b in zip(got, want))
+
+
+def test_chunk_function_grads_keep_the_input_dtype():
+    arrays = _inputs(1, 20, 2, 4, 8)
+    ins = [to_torch(a, "float32" if i == 2 else "bfloat16").requires_grad_()
+           for i, a in enumerate(arrays)]
+    outs = ssd_chunk(*ins, 8)
+    assert outs[0].grad_fn.name() == "SsdChunkFnBackward"
+    sum(o.sum() for o in outs).backward()
+    assert [t.grad.dtype for t in ins] == [t.dtype for t in ins]
