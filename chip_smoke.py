@@ -88,10 +88,23 @@ exits non-zero; no phase's error is caught):
     planted faults in the backward (a zeroed dW, a non-causal flash
     recompute, a dropped ``in_decay`` gradient) must fail the fp32 limit;
     ``ssd_scan``'s plain-recompute backward timed.
-19. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
+19. sim_batch -- the batch simulator (``repro_torch.sim.batch``) on the
+    card: the tracked sweep (``benchmarks/sweep_subset.py::sweep_jobs``, 14
+    workloads x (the baseline + 7 designs) x Table-2 configs 6 and 7: 196
+    unique sims, rebuilt from ``repro_torch.sim`` and ``repro_torch.workloads``)
+    through ``run_batch(..., fallback=False, device="cuda")``, each result held
+    field by field, ``cycle_breakdown`` included, to the port's scalar
+    ``engine.simulate`` run meanwhile on the host in worker processes; the same
+    at 8 lanes per launch on all 7 designs x 4 workloads at Table-2 #7; jobs,
+    lanes per launch, launches, ticks, graph captures, the card's wall,
+    simulated instructions per second against the scalar engine's on one host
+    core, ms a tick for eager blocks and for graph replay and the device-busy
+    share of a block (profiler); a planted fault (the DRAM queue's interval one
+    cycle longer) must make some job differ.
+20. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
     7-17, each counted from 0) in all and per route, error, times and
     bounds per kernel, and each kernel's training launches and backward.
-20. the last line: ``{"ok": true, "device": {...}}``.
+21. the last line: ``{"ok": true, "device": {...}}``.
 
 Weights are random (seeded); the port imports neither jax nor the JAX package.
 Each model's weights are freed before the next model is made.  Bounds use the
@@ -101,11 +114,13 @@ H100 SXM data-sheet figures: 3.35 TB/s HBM, 989 TFLOP/s dense bf16 tensor,
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
@@ -151,6 +166,12 @@ from repro_torch.models.lm import (  # noqa: E402
     ATTN_FAMILIES, decode_step, head_width, held_width, init_decode_cache, init_params,
     logits_fn, loss_fn,
 )
+from repro_torch.sim import baseline_config, design_config  # noqa: E402
+from repro_torch.sim import batch as sim_batch  # noqa: E402
+from repro_torch.sim import engine as sim_engine  # noqa: E402
+from repro_torch.sim.batch import run_batch as sim_run_batch  # noqa: E402
+from repro_torch.workloads import Workload, get_workload, listing1_program  # noqa: E402
+from repro_torch.workloads import workload_names as sim_workload_names  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -1646,6 +1667,221 @@ def phase_train_grads(dev, seed) -> dict:
     return out
 
 
+# ------------------------------------------------------------ the simulator
+
+SIM_DESIGNS = ("BL", "RFC", "SHRF", "LTRF", "LTRF_conf", "LTRF_plus", "Ideal")
+SIM_TABLE2 = (6, 7)
+SIM_SCALAR_WORKERS = 6             # host processes for the scalar engine
+SIM_NARROW_LANES = 8               # the reference's lanes per launch (XLA on the CPU)
+# the 8-lane comparison: all 7 designs at Table-2 #7 on the 4 workloads of
+# the sweep with the fewest ticks, so that it fits the phase's time
+SIM_NARROW_WORKLOADS = ("pathfinder", "bfs", "btree", "kmeans")
+
+
+def sim_sweep_jobs(table2_configs=SIM_TABLE2) -> list:
+    """``benchmarks/sweep_subset.py::sweep_jobs`` (:116-126) rebuilt from the
+    port: 14 workloads x (the §6 baseline + 7 designs) x Table-2 configs,
+    the unique (workload, config) pairs in order."""
+    jobs, seen = [], set()
+    for tc in table2_configs:
+        for name in sim_workload_names():
+            for cfg in [baseline_config()] + [design_config(d, table2_config=tc)
+                                              for d in SIM_DESIGNS]:
+                if (name, cfg) not in seen:
+                    seen.add((name, cfg))
+                    jobs.append((name, cfg))
+    return jobs
+
+
+def sim_workload(name: str):
+    """A workload of the suite, or the paper's Listing 1 (the planted fault's:
+    its pins are tests/test_sim_golden.py's)."""
+    if name == "listing1":
+        return Workload(name="listing1", program=listing1_program(), trips={"L1": 100},
+                        register_sensitive=False, regs_per_thread=8, suite="paper")
+    return get_workload(name)
+
+
+def sim_scalar(job):
+    """The port's scalar event engine on one job (a host worker's task):
+    the result as a dict and its seconds on one core."""
+    name, cfg = job
+    t0 = time.perf_counter()
+    res = sim_engine.simulate(sim_workload(name), cfg)
+    return dataclasses.asdict(res), time.perf_counter() - t0
+
+
+def sim_chunks(jobs, sub_lanes) -> list:
+    lanes = []
+    for name, cfg in jobs:
+        w = sim_workload(name)
+        lanes.append(sim_batch._Lane(w, cfg, sim_batch._encode_plan(w, cfg),
+                                     sim_batch._occupancy(w, cfg)))
+    return [c for c, _ in sim_batch._chunk_lanes(lanes, list(range(len(lanes))), sub_lanes)]
+
+
+def sim_card_run(jobs, sub_lanes) -> dict:
+    """``run_batch`` on the card with ``sub_lanes`` lanes per launch at most:
+    results, wall seconds and the run's counters."""
+    lanes_per_launch = [len(c) for c in sim_chunks(jobs, sub_lanes)]
+    with patched(sim_batch, "_SUB_LANES", {**sim_batch._SUB_LANES, "cuda": sub_lanes}):
+        sim_batch.reset_run_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sim_run_batch([(sim_workload(n), c) for n, c in jobs], fallback=False,
+                            device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stats = {**sim_batch.RUN_STATS, **sim_batch.BLOCK_STATS}
+    instr = sum(r.instructions for r in res)
+    return {"results": [dataclasses.asdict(r) for r in res], "jobs": len(jobs),
+            "lanes_per_launch": lanes_per_launch, "launches": stats["launches"],
+            "ticks": stats["ticks"], "graph_captures": stats["compiles"],
+            "capture_s": stats["compile_s"], "blocks": stats["blocks"],
+            "eager_blocks": stats["eager_blocks"], "replays": stats["replays"],
+            "reruns": stats["reruns"], "wall_s": wall, "sim_instructions": instr,
+            "sim_instr_per_s": instr / wall}
+
+
+def sim_tick_times(lanes, blocks: int = 10) -> dict:
+    """ms a tick of one chunk alone, its blocks run eagerly and then replayed
+    from its graph (each after its first, exact block), and the device-busy
+    share of graph blocks (kernel time over the window's wall, profiler)."""
+    co, st = sim_batch._build(lanes)
+    run = sim_batch._Chunk(co, st, torch.device("cuda"))
+    run.launch()
+    run.settle()
+    T = run.block
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run.launch()
+            run.settle()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (n * T)
+
+    run.graphs = False
+    eager = timed(3)
+    run.graphs = True
+    run.launch()                     # the capture, then its first replay
+    run.settle()
+    graph = timed(blocks)
+    # a block's device time (CUDA events on the chunk's stream) and the host
+    # time of its launch, medians of 5
+    dev_ms, launch_ms = [], []
+    for _ in range(5):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(run.stream):
+            e0.record()
+            t0 = time.perf_counter()
+            run.launch()
+            launch_ms.append((time.perf_counter() - t0) * 1e3)
+            e1.record()
+        run.settle()
+        dev_ms.append(e0.elapsed_time(e1))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run.launch()
+            run.settle()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    top = {}
+    for e in kernels:
+        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us() / (3 * T)
+    return {"lanes": len(lanes), "K": run.dims[0], "W": run.dims[1], "A": run.dims[3],
+            "E": run.dims[4], "ticks_a_block": T, "eager_ms_per_tick": eager,
+            "graph_ms_per_tick": graph, "device_ms_per_tick": statistics.median(dev_ms) / T,
+            "launch_ms_per_block": statistics.median(launch_ms),
+            "kernels_per_tick": len(kernels) / (3 * T),
+            "device_busy_share": busy_us / window_us, "busy_us_per_tick": busy_us / (3 * T),
+            "top_device_us_per_tick": dict(sorted(top.items(), key=lambda kv: -kv[1])[:8]),
+            "reruns": run.stats["reruns"]}
+
+
+def sim_mismatches(card: list, scalar: list) -> list:
+    return [i for i, (a, b) in enumerate(zip(card, scalar)) if a != b]
+
+
+def phase_sim_batch(dev, seed) -> dict:
+    """The batch simulator on the card: the tracked sweep held job for job to
+    the scalar engine on the host (run in worker processes meanwhile)."""
+    del dev, seed                      # the sweep is fixed; no weights
+    jobs = sim_sweep_jobs()
+    narrow = [(n, design_config(d, table2_config=7)) for n in SIM_NARROW_WORKLOADS
+              for d in SIM_DESIGNS]
+    fault_jobs = [("listing1", design_config(d, table2_config=7, num_warps=16))
+                  for d in SIM_DESIGNS]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(SIM_SCALAR_WORKERS, mp_context=ctx) as pool:
+        scalar_f = [pool.submit(sim_scalar, j) for j in jobs]
+        fault_f = [pool.submit(sim_scalar, j) for j in fault_jobs]
+        wide = sim_card_run(jobs, sim_batch._SUB_LANES["cuda"])
+        at8 = sim_card_run(narrow, SIM_NARROW_LANES)
+        # a planted fault: the DRAM queue's interval one cycle longer
+        # (reference :855), a single float64 site
+        build = sim_batch._build
+
+        def late_dram(lanes):
+            co, st = build(lanes)
+            co["drint"] = co["drint"] + 1.0
+            return co, st
+
+        with patched(sim_batch, "_build", late_dram):
+            faulty = sim_card_run(fault_jobs, sim_batch._SUB_LANES["cuda"])
+        scalar = [f.result() for f in scalar_f]
+        fault_scalar = [f.result()[0] for f in fault_f]
+    # each job equal to the scalar engine, field by field
+    scalar_res = [r for r, _ in scalar]
+    bad = sim_mismatches(wide["results"], scalar_res)
+    check(not bad, f"sim_batch: {len(bad)} of {len(jobs)} jobs differ from the scalar engine "
+                   f"(first {[jobs[i][0] + '/' + jobs[i][1].design for i in bad[:5]]})")
+    index = {(n, c): i for i, (n, c) in enumerate(jobs)}
+    bad8 = [i for i, (j, r) in enumerate(zip(narrow, at8["results"])) if r != scalar_res[index[j]]]
+    check(not bad8, f"sim_batch at {SIM_NARROW_LANES} lanes: {len(bad8)} jobs differ")
+    fault_bad = sim_mismatches(faulty["results"], fault_scalar)
+    check(len(fault_bad) > 0, "sim_batch: the planted DRAM-interval fault passed the check")
+    scalar_s = sum(s for _, s in scalar)
+    instr = sum(r["instructions"] for r in scalar_res)
+    # ms a tick, eagerly and replayed, and the busy share, for the widest
+    # chunk of the sweep and for an 8-lane chunk of the comparison
+    chunks = sim_chunks(jobs, sim_batch._SUB_LANES["cuda"])
+    widest = max(chunks, key=len)
+    times = {"widest": sim_tick_times(widest),
+             "narrow": sim_tick_times(max(sim_chunks(narrow, SIM_NARROW_LANES), key=len))}
+    for run in (wide, at8, faulty):
+        del run["results"]
+    widest_t, narrow_t = times["widest"], times["narrow"]
+    return {
+        "jobs": len(jobs), "identical": len(jobs) - len(bad), "table2_configs": list(SIM_TABLE2),
+        "lanes_per_launch": max(wide["lanes_per_launch"]), "launches": wide["launches"],
+        "ticks": wide["ticks"], "graph_captures": wide["graph_captures"],
+        "card_wall_s": wide["wall_s"], "sim_instructions": wide["sim_instructions"],
+        "sim_instr_per_s": wide["sim_instr_per_s"],
+        "scalar_instr_per_s": instr / scalar_s,
+        "eager_ms_per_tick": widest_t["eager_ms_per_tick"],
+        "graph_ms_per_tick": widest_t["graph_ms_per_tick"],
+        "device_ms_per_tick": widest_t["device_ms_per_tick"],
+        "device_busy_share": widest_t["device_busy_share"],
+        "at_8_lanes": {"jobs": len(narrow), "identical": len(narrow) - len(bad8),
+                       "workloads": list(SIM_NARROW_WORKLOADS),
+                       **{k: at8[k] for k in ("launches", "ticks", "graph_captures", "wall_s",
+                                              "sim_instr_per_s")},
+                       **{k: narrow_t[k] for k in ("eager_ms_per_tick", "graph_ms_per_tick",
+                                                   "device_ms_per_tick", "device_busy_share")}},
+        "planted_fault": {"fault": "DRAM-queue interval one cycle longer (reference :855)",
+                          "jobs": len(fault_jobs), "mismatched": len(fault_bad)},
+        "scalar_engine": {"workers": SIM_SCALAR_WORKERS, "cpu_s": scalar_s,
+                          "sim_instructions": instr},
+        "sweep_run": wide, "narrow_run": at8, "tick_times": times,
+    }
+
+
 def kernels_line(cfgs, checks, paths, routes, trained, grads) -> dict:
     """``paths``: each main path's launch counts, by phase; ``routes``: the
     same per route, for the kernels that have routes; ``trained`` and
@@ -1787,6 +2023,7 @@ def main() -> int:
         paths[name] = results[name]["launches"]
         routes[name] = results[name]["launches_by_route"]
     run("train_grads", phase_train_grads, dev, args.seed)
+    run("sim_batch", phase_sim_batch, dev, args.seed)
     line = kernels_line(cfgs, results["kernel_checks"], paths, routes,
                         results["train_tinyllama"], results["train_grads"])
     for k in line["kernels"]:

@@ -1,8 +1,6 @@
 """IntervalPlan: the paper's interval analysis applied to model layer graphs.
 
-Copy of ``repro.core.plan`` for the PyTorch port.  The one change: the
-interval analysis is memoized with a local ``functools.lru_cache`` keyed by
-the tile program's text, in place of the reference's shared plan cache.  On
+Copy of ``repro.core.plan`` for the PyTorch port: the same text.  On
 Hopper a "tile" is a shared-memory operand block and the budget is shared
 memory per CTA; the text below keeps the reference's TPU wording (VMEM) for
 the same roles.
@@ -27,12 +25,11 @@ to choose per-layer-group streaming/remat policy.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from functools import lru_cache
+from dataclasses import dataclass, field
 
 from .coloring import chaitin_color
-from .intervals import IntervalAnalysis, form_register_intervals
 from .ir import parse_asm
+from .plan_cache import cached_intervals
 
 
 @dataclass(frozen=True)
@@ -101,12 +98,6 @@ class IntervalPlan:
                 assert len(set(vals)) == len(vals), "slot conflict"
 
 
-@lru_cache(maxsize=256)
-def _cached_intervals(asm: str, n_cap: int) -> IntervalAnalysis:
-    """Memoized interval formation over one tile program (read-only result)."""
-    return form_register_intervals(parse_asm(asm, name="layer-stream"), n_cap)
-
-
 def _balanced_slots(names: list[str], idx: dict[str, int],
                     colors: dict[int, int], num_slots: int) -> dict[str, int]:
     """Per-round buffer-slot assignment derived from the global coloring.
@@ -161,8 +152,9 @@ def plan_layer_stream(
             for r in regs:
                 lines.append(f"add r{r}, r{r}, r{r}")
     lines.append("exit")
+    prog = parse_asm("\n".join(lines), name="layer-stream")
     # memoized: repeated plans over the same layer graph compile once
-    analysis = _cached_intervals("\n".join(lines), cap)
+    analysis = cached_intervals(prog, cap)
 
     # Map intervals back to layers + tiles.
     reg_to_tile = {}

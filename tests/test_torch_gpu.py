@@ -510,3 +510,99 @@ def test_every_kernel_output_carries_a_backward(dev):
     assert flash_attention(q, kv, kv).grad_fn is not None
     ins = [t.requires_grad_() for t in _ssd_inputs(1, 64, 4, 16, 16, dev)]
     assert all(o.grad_fn is not None for o in ssd_chunk(*ins, 32))
+
+
+# ------------------------------------------------ the batch simulator on the card
+
+def _sim_lanes(chunk):
+    from repro_torch.sim import batch, design_config
+    from repro_torch.workloads import Workload, get_workload, listing1_program
+    out = []
+    for name, design, nw in chunk:
+        w = (Workload(name="listing1", program=listing1_program(), trips={"L1": 100},
+                      register_sensitive=False, regs_per_thread=8, suite="paper")
+             if name == "listing1" else get_workload(name))
+        cfg = design_config(design, table2_config=7, num_warps=nw)
+        out.append(batch._Lane(w, cfg, batch._encode_plan(w, cfg), batch._occupancy(w, cfg)))
+    return out
+
+
+def _sim_state(lanes, device, **opts):
+    from repro_torch.sim import batch
+    co, st = batch._build(lanes)
+    run = batch._Chunk(co, st, torch.device(device), **opts)
+    while not run.done:
+        run.launch()
+        run.settle()
+    return {k: v.cpu().numpy() for k, v in run.state().items()}, run.stats
+
+
+def _same_state(a, b):
+    import numpy as np
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+# small jobs: an eager tick on the card costs 10-30 ms of host dispatch
+SIM_CHUNKS = {
+    "listing1_all_designs": [("listing1", d, 16) for d in
+                             ("BL", "RFC", "SHRF", "LTRF", "LTRF_conf", "LTRF_plus", "Ideal")],
+    "rfc_and_bl": [("listing1", "RFC", 16), ("listing1", "BL", 8)],
+    "cached_mix": [("listing1", "SHRF", 16), ("listing1", "LTRF_plus", 8),
+                   ("listing1", "LTRF", 12)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SIM_CHUNKS))
+def test_sim_batch_card_gives_the_cpu_bits(dev, name):
+    """Graph replay on the card, and the same blocks run eagerly, give the
+    CPU's final state bit for bit (float64 sites included)."""
+    lanes = _sim_lanes(SIM_CHUNKS[name])
+    cpu, _ = _sim_state(lanes, "cpu")
+    graph, stats = _sim_state(lanes, "cuda")
+    assert stats["captures"] == 1 and stats["replays"] > 0
+    eager, estats = _sim_state(lanes, "cuda", graphs=False)
+    assert estats["replays"] == 0
+    assert _same_state(graph, cpu)
+    assert _same_state(eager, cpu)
+
+
+def test_sim_batch_card_rolls_back_overflowing_blocks(dev):
+    """A bound of 0 activation prefetches overflows in every block that
+    charges one: the rolled-back and rerun blocks still give the CPU's bits."""
+    lanes = _sim_lanes(SIM_CHUNKS["cached_mix"])
+    cpu, _ = _sim_state(lanes, "cpu")
+    graph, stats = _sim_state(lanes, "cuda", block=8, act_k=0)
+    assert stats["reruns"] > 0
+    assert _same_state(graph, cpu)
+
+
+def test_sim_batch_card_ties_pick_the_first_index(dev):
+    col = torch.tensor([[7, 3, 3, 3], [0, 0, 0, 0], [9, 9, 2, 2]], dtype=torch.int64, device=dev)
+    assert torch.argmin(col, dim=1).tolist() == [1, 0, 2]
+    assert torch.argmin(col, dim=1, keepdim=True).flatten().tolist() == [1, 0, 2]
+    cand = torch.tensor([[0, 1, 1, 0], [1, 1, 1, 1], [0, 0, 0, 0]], dtype=torch.uint8, device=dev)
+    assert torch.argmax(cand, dim=1).tolist() == [1, 0, 0]
+    wide = torch.zeros((3, 64), dtype=torch.int64, device=dev)
+    wide[0, 40:] = -1
+    assert torch.argmin(wide, dim=1).tolist() == [40, 0, 0]
+
+
+def test_sim_batch_card_division_is_ieee(dev):
+    """A float64 division by a device tensor is the IEEE quotient (the
+    jitter hash's `/ 65535`), as on the CPU; by a Python scalar CUDA
+    PyTorch multiplies by the reciprocal, which the engine never does."""
+    h = torch.arange(0, 65536, dtype=torch.float64)
+    want = h / torch.tensor(65535.0, dtype=torch.float64)
+    got = h.to(dev) / torch.tensor(65535.0, dtype=torch.float64, device=dev)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_sim_batch_run_batch_on_the_card_matches_the_scalar_engine(dev):
+    from repro_torch.sim import design_config, run_batch, simulate
+    from repro_torch.workloads import get_workload
+    jobs = [(get_workload(n), design_config(d, table2_config=7, num_warps=nw))
+            for n, d, nw in [("kmeans", "LTRF", 2), ("btree", "RFC", 2), ("kmeans", "BL", 2),
+                             ("kmeans", "LTRF_conf", 3), ("kmeans", "Ideal", 3)]]
+    for (w, cfg), got in zip(jobs, run_batch(jobs, fallback=False)):
+        assert got == simulate(w, cfg), cfg.design

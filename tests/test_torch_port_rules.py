@@ -120,3 +120,18 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
         with pytest.raises(ValueError):
             ssd_scan(*args, chunk=8)
     assert (ltrf_matmul.launches, flash_attention.launches, ssd_scan.launches) == before
+
+
+@pytest.mark.parametrize("entry", ["run_batch", "simulate_batch", "simulate_one"])
+def test_sim_batch_entry_points_raise_without_card(no_card, entry):
+    """The batch simulator defaults to the card like every entry point."""
+    from repro_torch.sim import design_config, run_batch, simulate_batch, simulate_one
+    from repro_torch.workloads import get_workload
+    w, cfg = get_workload("kmeans"), design_config("LTRF", table2_config=7, num_warps=2)
+    calls = {
+        "run_batch": lambda: run_batch([(w, cfg)]),
+        "simulate_batch": lambda: simulate_batch([(w, cfg)]),
+        "simulate_one": lambda: simulate_one(w, cfg),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        calls[entry]()
