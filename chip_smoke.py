@@ -88,23 +88,42 @@ exits non-zero; no phase's error is caught):
     planted faults in the backward (a zeroed dW, a non-causal flash
     recompute, a dropped ``in_decay`` gradient) must fail the fp32 limit;
     ``ssd_scan``'s plain-recompute backward timed.
-19. sim_batch -- the batch simulator (``repro_torch.sim.batch``) on the
-    card: the tracked sweep (``benchmarks/sweep_subset.py::sweep_jobs``, 14
+19. sweep_service -- the simulator's sweep service
+    (``repro_torch.serving.SimRunner(device="cuda", batch=True)``) driving the
+    batch simulator on the card, each simulated result held field by field,
+    ``cycle_breakdown`` included, to the port's scalar ``engine.simulate`` (or
+    ``simulate_gpu`` over it) run meanwhile on the host in worker processes:
+    (a) the tracked sweep (``benchmarks/sweep_subset.py::sweep_jobs``, 14
     workloads x (the baseline + 7 designs) x Table-2 configs 6 and 7: 196
     unique sims, rebuilt from ``repro_torch.sim`` and ``repro_torch.workloads``)
-    through ``run_batch(..., fallback=False, device="cuda")``, each result held
-    field by field, ``cycle_breakdown`` included, to the port's scalar
-    ``engine.simulate`` run meanwhile on the host in worker processes; the same
-    at 8 lanes per launch on all 7 designs x 4 workloads at Table-2 #7; jobs,
-    lanes per launch, launches, ticks, graph captures, the card's wall,
-    simulated instructions per second against the scalar engine's on one host
-    core, ms a tick for eager blocks and for graph replay and the device-busy
-    share of a block (profiler); a planted fault (the DRAM queue's interval one
+    through ``prefill``, all 196 batched on the card: the service's wall beside
+    the batch engine's, simulated instructions per second against the scalar
+    engine's on one host core; (b) its replay by a fresh runner on the same
+    store, all cache hits, and the same sweep on the service's host pool
+    (``batch=False``, 6 spawned workers), for the card's wall to be read
+    against; (c) the whole-GPU mini-sweep
+    (``gpu_sweep_jobs``: 2 SMs x 16 warps, srad and bfs, BL and LTRF, three
+    schedulers) through ``prefill_gpu`` and ``sim_gpu``: the ``two_level``
+    per-SM jobs batched on the card, the others on the service's process
+    pool; (d) the analytic tier over the screening grid (``screening_jobs``:
+    3752 points), then the hybrid tier's confirmations (all ``gto`` points,
+    on the pool), and the same over the grid's ``two_level`` half for the 4
+    workloads of the 8-lane comparison (536 points), whose confirmations run
+    on the card; (e) a
+    planted whole-batch failure of the engine must raise out of ``prefill``
+    with no job completed elsewhere; (f) the service's sweep metrics.
+20. sim_batch -- the batch simulator (``repro_torch.sim.batch``) driven
+    directly on the card: ``run_batch(..., fallback=False, device="cuda")`` at
+    8 lanes per launch on all 7 designs x 4 workloads at Table-2 #7, each
+    result held to the scalar engine; lanes per launch, launches, ticks, graph
+    captures, the card's wall, ms a tick for eager blocks and for graph replay
+    and the device-busy share of a block (profiler), for that chunk and for
+    the tracked sweep's widest; a planted fault (the DRAM queue's interval one
     cycle longer) must make some job differ.
-20. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
+21. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
     7-17, each counted from 0) in all and per route, error, times and
     bounds per kernel, and each kernel's training launches and backward.
-21. the last line: ``{"ok": true, "device": {...}}``.
+22. the last line: ``{"ok": true, "device": {...}}``.
 
 Weights are random (seeded); the port imports neither jax nor the JAX package.
 Each model's weights are freed before the next model is made.  Bounds use the
@@ -129,6 +148,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -166,7 +186,10 @@ from repro_torch.models.lm import (  # noqa: E402
     ATTN_FAMILIES, decode_step, head_width, held_width, init_decode_cache, init_params,
     logits_fn, loss_fn,
 )
-from repro_torch.sim import baseline_config, design_config  # noqa: E402
+from repro_torch.serving import SimRunner, sim_key  # noqa: E402
+from repro_torch.sim import TOLERANCE_MULTS, baseline_config, design_config  # noqa: E402
+from repro_torch.sim import simulate_gpu  # noqa: E402
+from repro_torch.sim.gpu import per_sm_configs  # noqa: E402
 from repro_torch.sim import batch as sim_batch  # noqa: E402
 from repro_torch.sim import engine as sim_engine  # noqa: E402
 from repro_torch.sim.batch import run_batch as sim_run_batch  # noqa: E402
@@ -1808,9 +1831,281 @@ def sim_mismatches(card: list, scalar: list) -> list:
     return [i for i, (a, b) in enumerate(zip(card, scalar)) if a != b]
 
 
+SIM_GPU_SCHEDULERS = ("two_level", "gto", "lrr")
+
+
+def sim_gpu_sweep_jobs(num_sms: int = 2, warps_per_sm: int = 16,
+                       workloads=("srad", "bfs"), designs=("BL", "LTRF")) -> list:
+    """``benchmarks/sweep_subset.py::gpu_sweep_jobs`` (:66-79) rebuilt from the
+    port: whole-GPU configs at Table-2 #7, one per (workload, design,
+    scheduler)."""
+    return [(name, design_config(d, table2_config=7, num_warps=warps_per_sm * num_sms,
+                                 num_sms=num_sms, scheduler=s))
+            for name in workloads for d in designs for s in SIM_GPU_SCHEDULERS]
+
+
+def sim_screening_jobs(workloads=None, schedulers=("two_level", "gto")) -> list:
+    """``benchmarks/sweep_subset.py::screening_jobs`` (:129-152) rebuilt from
+    the port: the designs x workloads x tolerated latency x RF size x
+    scheduler grid of the analytic tier, unique points in order."""
+    names = list(workloads) if workloads else sim_workload_names()
+    return list(dict.fromkeys(
+        (name, design_config(d, table2_config=7, rf_size_kb=kb, mrf_latency_mult=float(m),
+                             scheduler=s))
+        for kb in (256, 2048) for name in names for d in SIM_DESIGNS
+        for m in TOLERANCE_MULTS for s in schedulers))
+
+
+def sim_scalar_gpu(job) -> dict:
+    """The port's whole-GPU model over its scalar engine (a host worker's
+    task)."""
+    name, cfg = job
+    return dataclasses.asdict(simulate_gpu(sim_workload(name), cfg))
+
+
+@contextlib.contextmanager
+def engine_calls():
+    """Record each call the sweep service makes to the batch engine: its
+    jobs, wall seconds, chunks (launches) and ticks."""
+    calls = []
+    inner = sim_batch.run_batch
+
+    def timed(jobs, **kw):
+        sim_batch.reset_run_stats()
+        t0 = time.perf_counter()
+        out = inner(jobs, **kw)
+        calls.append({"jobs": len(jobs), "device": str(kw.get("device")),
+                      "wall_s": time.perf_counter() - t0,
+                      "launches": sim_batch.RUN_STATS["launches"],
+                      "ticks": sim_batch.RUN_STATS["ticks"]})
+        return out
+
+    with patched(sim_batch, "run_batch", timed):
+        yield calls
+
+
+def sweep_runner(cache_dir, batch=True) -> SimRunner:
+    return SimRunner(device="cuda", batch=batch, processes=SIM_SCALAR_WORKERS,
+                     cache_dir=cache_dir)
+
+
+def report_line(report) -> dict:
+    keys = ("total", "cached", "computed", "completed", "pool_recycles", "wall_s", "tier",
+            "analytic_points", "frontier_confirmed")
+    return {**{k: getattr(report, k) for k in keys}, "ok": report.ok,
+            "failed": report.failed_jobs(), "quarantined": len(report.quarantined)}
+
+
+def stored_jobs(runner, jobs) -> list:
+    """The jobs whose engine result is in ``runner``'s store."""
+    return [j for j in jobs if runner.store.path(sim_key(*j)).exists()]
+
+
+def fork_warnings() -> list:
+    """What starting a worker by ``fork`` warns in this process, where CUDA
+    has started: the reason the service spawns its pool's workers here."""
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        fork = multiprocessing.get_context("fork")
+        with concurrent.futures.ProcessPoolExecutor(1, mp_context=fork) as pool:
+            pool.submit(os.getpid).result()
+    return [f"{w.category.__name__}: {w.message}" for w in warned]
+
+
+def service_whole_gpu(cache_dir, jobs, scalar) -> dict:
+    """(c): whole-GPU jobs through ``prefill_gpu`` and ``sim_gpu``; each
+    ``GpuResult`` held to ``scalar`` (``simulate_gpu`` over the scalar
+    engine).  The per-SM jobs of the batch engine's scheduler go to the card,
+    the others to the service's process pool, started after CUDA; any
+    warning raised while it starts is recorded."""
+    runner = sweep_runner(cache_dir)
+    per_sm = [(n, c) for n, cfg in jobs for c in per_sm_configs(cfg)]
+    on_card = [j for j in per_sm if sim_batch.batch_supported(j[1])]
+    with engine_calls() as calls, warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        report = runner.prefill_gpu(jobs)
+        wall = time.perf_counter() - t0
+    check(report.ok and report.computed == len(per_sm),
+          f"sweep_service whole-GPU: {report_line(report)}")
+    check(runner.stats["batched"] == len(on_card) and calls and calls[0]["jobs"] == len(on_card),
+          f"sweep_service whole-GPU: {runner.stats['batched']} per-SM jobs batched, "
+          f"{len(on_card)} expected")
+    got = [dataclasses.asdict(runner.sim_gpu(n, c)) for n, c in jobs]
+    bad = sim_mismatches(got, scalar)
+    check(not bad, f"sweep_service whole-GPU: {len(bad)} of {len(jobs)} GpuResults differ "
+                   f"from the scalar engine")
+    return {"jobs": len(jobs), "per_sm_jobs": len(per_sm), "identical": len(jobs) - len(bad),
+            "batched_on_card": runner.stats["batched"],
+            "on_pool": report.computed - runner.stats["batched"], "wall_s": wall,
+            "engine_calls": calls, "report": report_line(report),
+            "warnings": [f"{w.category.__name__}: {w.message}" for w in warned],
+            "fork_warnings": fork_warnings()}
+
+
+def service_hybrid(cache_dir, grid) -> dict:
+    """(d): the analytic tier over ``grid`` (estimates on the host), then
+    the hybrid tier: the engine confirms each workload's frontier.  Returns
+    the walls, the confirmed jobs and what ran where."""
+    runner = sweep_runner(cache_dir)
+    t0 = time.perf_counter()
+    screened = runner.prefill(grid, tier="analytic")
+    estimate_wall = time.perf_counter() - t0
+    check(screened.ok and screened.analytic_points == len(grid),
+          f"sweep_service hybrid screening: {report_line(screened)}")
+    with engine_calls() as calls:
+        t0 = time.perf_counter()
+        report = runner.prefill(grid, tier="hybrid")
+        confirm_wall = time.perf_counter() - t0
+    confirmed = stored_jobs(runner, grid)
+    check(report.ok and report.frontier_confirmed == len(confirmed) > 0,
+          f"sweep_service hybrid: {report_line(report)}")
+    on_card = sum(sim_batch.batch_supported(c) for _, c in confirmed)
+    check(runner.stats["batched"] == on_card,
+          f"sweep_service hybrid: {runner.stats['batched']} batched, {on_card} expected")
+    return {"runner": runner, "confirmed": confirmed, "points": len(grid),
+            "estimate_wall_s": estimate_wall, "confirm_wall_s": confirm_wall,
+            "frontier_confirmed": report.frontier_confirmed, "batched_on_card": on_card,
+            "on_pool": len(confirmed) - on_card,
+            "card_wall_s": sum(c["wall_s"] for c in calls), "engine_calls": calls,
+            "report": report_line(report)}
+
+
+def service_planted_failure(cache_dir, jobs) -> dict:
+    """(e): the batch engine fails as a whole; ``prefill`` must raise, and
+    no job may be finished on the process pool instead."""
+    runner = sweep_runner(cache_dir)
+
+    def broken(jobs, **kw):
+        raise RuntimeError("planted whole-batch failure")
+
+    raised = ""
+    with patched(sim_batch, "run_batch", broken):
+        try:
+            runner.prefill(jobs)
+        except RuntimeError as e:
+            raised = str(e)
+    check(raised == "planted whole-batch failure",
+          "sweep_service: a planted whole-batch failure did not raise out of prefill")
+    check(runner.stats["computed"] == 0 and not stored_jobs(runner, jobs),
+          "sweep_service: jobs were completed after a planted whole-batch failure")
+    return {"jobs": len(jobs), "raised": raised, "computed": runner.stats["computed"]}
+
+
+def service_tracked(cache_dir, host_dir, jobs, scalar_f, out) -> SimRunner:
+    """(a) the tracked sweep through ``prefill``, every job batched on the
+    card and held to ``scalar_f`` (the scalar engine's futures); (b) its
+    replay by a fresh runner on the same store; and the same sweep on the
+    service's host pool, for the card's wall to be read against.  Fills
+    ``out`` and returns the runner of (a)."""
+    # (a) the tracked sweep, every job batched on the card
+    runner = sweep_runner(cache_dir)
+    with engine_calls() as calls:
+        t0 = time.perf_counter()
+        report = runner.prefill(jobs)
+        wall = time.perf_counter() - t0
+    check(report.ok and report.computed == len(jobs)
+          and runner.stats["batched"] == len(jobs),
+          f"sweep_service: {report_line(report)}, batched {runner.stats['batched']}")
+    got = [dataclasses.asdict(runner.sim(n, c)) for n, c in jobs]
+    scalar = [f.result() for f in scalar_f]
+    scalar_res = [r for r, _ in scalar]
+    bad = sim_mismatches(got, scalar_res)
+    first = [jobs[i][0] + "/" + jobs[i][1].design for i in bad[:5]]
+    check(not bad, f"sweep_service: {len(bad)} of {len(jobs)} jobs differ from the "
+                   f"scalar engine (first {first})")
+    scalar_s = sum(s for _, s in scalar)
+    instr = sum(r["instructions"] for r in scalar_res)
+    out["tracked"] = {
+        "jobs": len(jobs), "identical": len(jobs) - len(bad),
+        "batched": runner.stats["batched"], "service_wall_s": wall,
+        "engine_wall_s": sum(c["wall_s"] for c in calls),
+        "service_overhead_s": wall - sum(c["wall_s"] for c in calls),
+        "sim_instructions": instr, "sim_instr_per_s": instr / wall,
+        "scalar_cpu_s": scalar_s, "scalar_instr_per_s": instr / scalar_s,
+        "engine_calls": calls, "report": report_line(report)}
+    # (b) the replay: a fresh runner on the same store
+    replay = sweep_runner(cache_dir)
+    t0 = time.perf_counter()
+    report_b = replay.prefill(jobs)
+    wall_b = time.perf_counter() - t0
+    check(report_b.ok and report_b.cached == len(jobs) and report_b.computed == 0,
+          f"sweep_service replay: {report_line(report_b)}")
+    bad_b = sim_mismatches([dataclasses.asdict(replay.sim(n, c)) for n, c in jobs], got)
+    check(not bad_b, f"sweep_service replay: {len(bad_b)} results differ")
+    out["replay"] = {"jobs": len(jobs), "cached": report_b.cached,
+                     "disk_hits": replay.stats["disk_hits"], "wall_s": wall_b}
+    # the same sweep on the service's host pool (the scalar engine),
+    # for the card's wall to be read against
+    host = sweep_runner(host_dir, batch=False)
+    t0 = time.perf_counter()
+    report_h = host.prefill(jobs)
+    wall_h = time.perf_counter() - t0
+    check(report_h.ok and report_h.computed == len(jobs) and host.stats["batched"] == 0,
+          f"sweep_service host pool: {report_line(report_h)}")
+    bad_h = sim_mismatches([dataclasses.asdict(host.sim(n, c)) for n, c in jobs], got)
+    check(not bad_h, f"sweep_service host pool: {len(bad_h)} results differ")
+    out["host_pool"] = {"jobs": len(jobs), "workers": SIM_SCALAR_WORKERS,
+                        "wall_s": wall_h, "sim_instr_per_s": instr / wall_h}
+    return runner
+
+
+def phase_sweep_service(dev, seed) -> dict:
+    """The sweep service (``repro_torch.serving.SimRunner``) driving the batch
+    simulator on the card: (a) the tracked sweep, (b) its replay from the
+    store, (c) the whole-GPU mini-sweep, (d) the hybrid tier, (e) a planted
+    whole-batch failure, (f) the service's metrics.  Every simulated result
+    is held field by field to the port's scalar engine, run meanwhile in
+    host worker processes."""
+    del dev, seed                      # the sweeps are fixed; no weights
+    jobs = sim_sweep_jobs()
+    gpu_jobs = sim_gpu_sweep_jobs()
+    grid = sim_screening_jobs()
+    # the grid's confirmations are all gto points (the batch engine's
+    # domain is two_level); its two_level half, cut to the 4 workloads with
+    # the fewest ticks to fit the script's time, gives the card its own
+    grid_two_level = sim_screening_jobs(SIM_NARROW_WORKLOADS, schedulers=("two_level",))
+    cache = Path(tempfile.mkdtemp(prefix="sweep_service_"))
+    ctx = multiprocessing.get_context("spawn")
+    out: dict = {}
+    try:
+        with concurrent.futures.ProcessPoolExecutor(SIM_SCALAR_WORKERS, mp_context=ctx) as pool:
+            scalar_f = [pool.submit(sim_scalar, j) for j in jobs]
+            gpu_f = [pool.submit(sim_scalar_gpu, j) for j in gpu_jobs]
+            runner = service_tracked(cache / "tracked", cache / "host_pool", jobs, scalar_f, out)
+            # (c) the whole-GPU mini-sweep
+            out["whole_gpu"] = service_whole_gpu(cache / "gpu", gpu_jobs,
+                                                 [f.result() for f in gpu_f])
+            # (d) the hybrid tier: the screening grid, then its two_level half
+            hybrid = out["hybrid"] = {
+                "grid": service_hybrid(cache / "hybrid", grid),
+                "two_level": service_hybrid(cache / "hybrid_two_level", grid_two_level)}
+            conf_f = {k: [pool.submit(sim_scalar, j) for j in h["confirmed"]]
+                      for k, h in hybrid.items()}
+            # (e) a planted whole-batch failure
+            out["planted_failure"] = service_planted_failure(cache / "planted", jobs[:16])
+            for k, h in hybrid.items():
+                r = h.pop("runner")
+                confirmed = h.pop("confirmed")
+                bad_d = sim_mismatches([dataclasses.asdict(r.sim(*j)) for j in confirmed],
+                                       [f.result()[0] for f in conf_f[k]])
+                check(not bad_d, f"sweep_service hybrid ({k}): {len(bad_d)} of "
+                                 f"{len(confirmed)} confirmations differ from the scalar engine")
+                h["identical"] = len(confirmed) - len(bad_d)
+        # (f) the service's metrics
+        snap = runner.metrics_snapshot()
+        out["metrics"] = {k: v for k, v in snap.items()
+                          if k.startswith("sweep_") or k in ("run_id", "runner_stats")}
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    return out
+
+
 def phase_sim_batch(dev, seed) -> dict:
-    """The batch simulator on the card: the tracked sweep held job for job to
-    the scalar engine on the host (run in worker processes meanwhile)."""
+    """The batch simulator on the card, driven directly: 8 lanes a launch,
+    held job for job to the scalar engine on the host (run in worker
+    processes meanwhile), a planted fault, and the tick's times (the tracked
+    sweep runs through the sweep service, in phase ``sweep_service``)."""
     del dev, seed                      # the sweep is fixed; no weights
     jobs = sim_sweep_jobs()
     narrow = [(n, design_config(d, table2_config=7)) for n in SIM_NARROW_WORKLOADS
@@ -1819,9 +2114,8 @@ def phase_sim_batch(dev, seed) -> dict:
                   for d in SIM_DESIGNS]
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(SIM_SCALAR_WORKERS, mp_context=ctx) as pool:
-        scalar_f = [pool.submit(sim_scalar, j) for j in jobs]
+        scalar_f = [pool.submit(sim_scalar, j) for j in narrow]
         fault_f = [pool.submit(sim_scalar, j) for j in fault_jobs]
-        wide = sim_card_run(jobs, sim_batch._SUB_LANES["cuda"])
         at8 = sim_card_run(narrow, SIM_NARROW_LANES)
         # a planted fault: the DRAM queue's interval one cycle longer
         # (reference :855), a single float64 site
@@ -1837,33 +2131,20 @@ def phase_sim_batch(dev, seed) -> dict:
         scalar = [f.result() for f in scalar_f]
         fault_scalar = [f.result()[0] for f in fault_f]
     # each job equal to the scalar engine, field by field
-    scalar_res = [r for r, _ in scalar]
-    bad = sim_mismatches(wide["results"], scalar_res)
-    check(not bad, f"sim_batch: {len(bad)} of {len(jobs)} jobs differ from the scalar engine "
-                   f"(first {[jobs[i][0] + '/' + jobs[i][1].design for i in bad[:5]]})")
-    index = {(n, c): i for i, (n, c) in enumerate(jobs)}
-    bad8 = [i for i, (j, r) in enumerate(zip(narrow, at8["results"])) if r != scalar_res[index[j]]]
+    bad8 = sim_mismatches(at8["results"], [r for r, _ in scalar])
     check(not bad8, f"sim_batch at {SIM_NARROW_LANES} lanes: {len(bad8)} jobs differ")
     fault_bad = sim_mismatches(faulty["results"], fault_scalar)
     check(len(fault_bad) > 0, "sim_batch: the planted DRAM-interval fault passed the check")
-    scalar_s = sum(s for _, s in scalar)
-    instr = sum(r["instructions"] for r in scalar_res)
     # ms a tick, eagerly and replayed, and the busy share, for the widest
-    # chunk of the sweep and for an 8-lane chunk of the comparison
-    chunks = sim_chunks(jobs, sim_batch._SUB_LANES["cuda"])
-    widest = max(chunks, key=len)
+    # chunk of the tracked sweep and for an 8-lane chunk of the comparison
+    widest = max(sim_chunks(jobs, sim_batch._SUB_LANES["cuda"]), key=len)
     times = {"widest": sim_tick_times(widest),
              "narrow": sim_tick_times(max(sim_chunks(narrow, SIM_NARROW_LANES), key=len))}
-    for run in (wide, at8, faulty):
+    for run in (at8, faulty):
         del run["results"]
     widest_t, narrow_t = times["widest"], times["narrow"]
     return {
-        "jobs": len(jobs), "identical": len(jobs) - len(bad), "table2_configs": list(SIM_TABLE2),
-        "lanes_per_launch": max(wide["lanes_per_launch"]), "launches": wide["launches"],
-        "ticks": wide["ticks"], "graph_captures": wide["graph_captures"],
-        "card_wall_s": wide["wall_s"], "sim_instructions": wide["sim_instructions"],
-        "sim_instr_per_s": wide["sim_instr_per_s"],
-        "scalar_instr_per_s": instr / scalar_s,
+        "widest_lanes": len(widest),
         "eager_ms_per_tick": widest_t["eager_ms_per_tick"],
         "graph_ms_per_tick": widest_t["graph_ms_per_tick"],
         "device_ms_per_tick": widest_t["device_ms_per_tick"],
@@ -1876,9 +2157,7 @@ def phase_sim_batch(dev, seed) -> dict:
                                                    "device_ms_per_tick", "device_busy_share")}},
         "planted_fault": {"fault": "DRAM-queue interval one cycle longer (reference :855)",
                           "jobs": len(fault_jobs), "mismatched": len(fault_bad)},
-        "scalar_engine": {"workers": SIM_SCALAR_WORKERS, "cpu_s": scalar_s,
-                          "sim_instructions": instr},
-        "sweep_run": wide, "narrow_run": at8, "tick_times": times,
+        "narrow_run": at8, "tick_times": times,
     }
 
 
@@ -2023,6 +2302,7 @@ def main() -> int:
         paths[name] = results[name]["launches"]
         routes[name] = results[name]["launches_by_route"]
     run("train_grads", phase_train_grads, dev, args.seed)
+    run("sweep_service", phase_sweep_service, dev, args.seed)
     run("sim_batch", phase_sim_batch, dev, args.seed)
     line = kernels_line(cfgs, results["kernel_checks"], paths, routes,
                         results["train_tinyllama"], results["train_grads"])

@@ -606,3 +606,24 @@ def test_sim_batch_run_batch_on_the_card_matches_the_scalar_engine(dev):
                              ("kmeans", "LTRF_conf", 3), ("kmeans", "Ideal", 3)]]
     for (w, cfg), got in zip(jobs, run_batch(jobs, fallback=False)):
         assert got == simulate(w, cfg), cfg.design
+
+
+def test_sweep_service_batches_on_the_card(dev, tmp_path):
+    """The sweep service's prefill of Listing 1's 7 designs runs them on the
+    card's batch engine, each result the scalar engine's."""
+    from repro_torch.serving import SimRunner
+    from repro_torch.sim import design_config, simulate
+    from repro_torch.workloads import WORKLOADS, Workload, listing1_program, register_workload
+    name = "listing1_sweep_service"
+    w = register_workload(Workload(name=name, program=listing1_program(), trips={"L1": 100},
+                                   register_sensitive=False, regs_per_thread=8, suite="paper"))
+    try:
+        jobs = [(name, design_config(d, table2_config=7, num_warps=16)) for d in
+                ("BL", "RFC", "SHRF", "LTRF", "LTRF_conf", "LTRF_plus", "Ideal")]
+        runner = SimRunner(device="cuda", batch=True, processes=1, cache_dir=tmp_path)
+        report = runner.prefill(jobs)
+        assert report.ok and report.computed == 7 and runner.stats["batched"] == 7
+        for _, cfg in jobs:
+            assert runner.sim(name, cfg) == simulate(w, cfg), cfg.design
+    finally:
+        del WORKLOADS[name]

@@ -15,7 +15,7 @@ from repro_torch.kernels.ltrf_matmul import ltrf_matmul, matmul_ref  # noqa: E40
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_scan  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models.lm import init_decode_cache, init_params  # noqa: E402
-from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.serving import ServingEngine, SimRunner, default_runner  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -50,14 +50,17 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["engine", "init_params", "decode_cache", "serve"])
-def test_cuda_default_entry_points_raise_without_card(no_card, entry):
+@pytest.mark.parametrize("entry", ["engine", "init_params", "decode_cache", "serve",
+                                   "sim_runner", "default_runner"])
+def test_cuda_default_entry_points_raise_without_card(no_card, entry, tmp_path):
     cfg = get_smoke("tinyllama-1.1b")
     calls = {
         "engine": lambda: ServingEngine(cfg),
         "init_params": lambda: init_params(cfg),
         "decode_cache": lambda: init_decode_cache(cfg, 2, 8),
         "serve": lambda: serve("tinyllama-1.1b"),
+        "sim_runner": lambda: SimRunner(cache_dir=tmp_path),
+        "default_runner": default_runner,
     }
     with pytest.raises(RuntimeError, match="no CUDA card"):
         calls[entry]()

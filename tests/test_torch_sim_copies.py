@@ -2,7 +2,10 @@
 
 Each copy under ``src/repro_torch/`` must be its original's text up to the
 import rewrite (``repro.`` read as ``repro_torch.``) and its docstrings: the
-test compares their syntax trees.  Beyond the text, the port's scalar event
+test compares their syntax trees.  ``serving/sweep.py`` is a copy except for
+the functions and constants it names in ``PORT_REWRITES``: those are left out
+of the comparison, and each must exist in both modules and differ from its
+original.  Beyond the text, the port's scalar event
 engine must give the reference engine's and the golden oracle's results
 field by field (the two packages' dataclasses differ, so ``asdict`` is
 compared), on the Listing-1 pins and on the differential fuzz generators,
@@ -30,6 +33,7 @@ from repro.sim.golden import golden_simulate  # noqa: E402
 
 import repro_torch.core as port_core  # noqa: E402
 import repro_torch.core.plan_cache as port_plan_cache  # noqa: E402
+import repro_torch.serving.sweep as port_sweep  # noqa: E402
 import repro_torch.sim.batch as port_batch  # noqa: E402
 import repro_torch.sim.designs as port_designs  # noqa: E402
 import repro_torch.sim.engine as port_engine  # noqa: E402
@@ -46,7 +50,12 @@ COPIES = [
     "core/liveness", "core/icg", "core/renumber", "core/prefetch",
     "core/plan_cache", "core/pipeline", "obs/attribution", "obs/trace",
     "workloads/synth", "workloads/suite", "sim/engine", "sim/designs",
+    # the sweep service slice
+    "obs/metrics", "sim/gpu", "sim/power", "sim/analytic", "serving/faults",
+    "serving/sweep",
 ]
+# what a copy rewrites: left out of the comparison, held to differ below
+REWRITES = {"serving/sweep": port_sweep.PORT_REWRITES}
 
 
 class _Normalize(ast.NodeTransformer):
@@ -74,15 +83,66 @@ class _Normalize(ast.NodeTransformer):
         return node
 
 
-def _tree(path: Path) -> str:
-    return ast.dump(_Normalize().visit(ast.parse(path.read_text())))
+def _definitions(body: list, prefix: str = ""):
+    """(qualified name, the body holding it, node) for each function, class
+    and assignment to a name at module or class level."""
+    for node in body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            yield prefix + node.name, body, node
+            if isinstance(node, ast.ClassDef):
+                yield from _definitions(node.body, prefix + node.name + ".")
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            for target in targets:
+                if isinstance(target, ast.Name):
+                    yield prefix + target.id, body, node
+
+
+def _parse(path: Path) -> ast.Module:
+    return _Normalize().visit(ast.parse(path.read_text()))
+
+
+def _tree(path: Path, leave_out=()) -> str:
+    tree = _parse(path)
+    for name, body, node in list(_definitions(tree.body)):
+        if name in leave_out:
+            body.remove(node)
+    return ast.dump(tree)
+
+
+def _paths(module: str) -> tuple[Path, Path]:
+    return (ROOT / "src" / "repro" / f"{module}.py",
+            ROOT / "src" / "repro_torch" / f"{module}.py")
 
 
 @pytest.mark.parametrize("module", COPIES)
 def test_copy_equals_original_up_to_imports_and_docstrings(module):
-    original = ROOT / "src" / "repro" / f"{module}.py"
-    copy = ROOT / "src" / "repro_torch" / f"{module}.py"
-    assert _tree(copy) == _tree(original), f"{copy} drifted from {original}"
+    original, copy = _paths(module)
+    leave_out = (*REWRITES[module], "PORT_REWRITES") if module in REWRITES else ()
+    assert _tree(copy, leave_out) == _tree(original, leave_out), \
+        f"{copy} drifted from {original}"
+
+
+@pytest.mark.parametrize("name", port_sweep.PORT_REWRITES)
+def test_sweep_rewrites_exist_and_differ(name):
+    original, copy = _paths("serving/sweep")
+    defs = [{n: ast.dump(node) for n, _, node in _definitions(_parse(p).body)}
+            for p in (original, copy)]
+    assert name in defs[0], f"{name} is not in the original"
+    assert name in defs[1], f"{name} is not in the copy"
+    assert defs[0][name] != defs[1][name], f"{name} is listed but not rewritten"
+
+
+def test_sweep_copy_check_catches_a_changed_line(tmp_path):
+    """Outside the listed rewrites, one changed line is a different tree."""
+    original, copy = _paths("serving/sweep")
+    text = copy.read_text()
+    old = "        retry = kind in _RETRIABLE and st.attempts < self.cfg.max_attempts\n"
+    assert text.count(old) == 1
+    bad = tmp_path / "sweep.py"
+    bad.write_text(text.replace(old, old.replace("<", "<=")))
+    leave_out = (*port_sweep.PORT_REWRITES, "PORT_REWRITES")
+    assert _tree(bad, leave_out) != _tree(original, leave_out)
 
 
 def test_copy_check_catches_a_changed_line(tmp_path):
