@@ -101,13 +101,15 @@ exits non-zero; no phase's error is caught):
     engine's on one host core; (b) its replay by a fresh runner on the same
     store, all cache hits, and the same sweep on the service's host pool
     (``batch=False``, 6 spawned workers), for the card's wall to be read
-    against; (c) the whole-GPU mini-sweep
+    against, run on a host thread while the card runs (a), once the scalar
+    engine's references are done; (c) the whole-GPU mini-sweep
     (``gpu_sweep_jobs``: 2 SMs x 16 warps, srad and bfs, BL and LTRF, three
     schedulers) through ``prefill_gpu`` and ``sim_gpu``: the ``two_level``
     per-SM jobs batched on the card, the others on the service's process
     pool; (d) the analytic tier over the screening grid (``screening_jobs``:
     3752 points), then the hybrid tier's confirmations (all ``gto`` points,
-    on the pool), and the same over the grid's ``two_level`` half for the 4
+    on the pool; on the host thread too, after the host-pool sweep), and the
+    same over the grid's ``two_level`` half for the 4
     workloads of the 8-lane comparison (536 points), whose confirmations run
     on the card; (e) a
     planted whole-batch failure of the engine must raise out of ``prefill``
@@ -120,10 +122,26 @@ exits non-zero; no phase's error is caught):
     and the device-busy share of a block (profiler), for that chunk and for
     the tracked sweep's widest; a planted fault (the DRAM queue's interval one
     cycle longer) must make some job differ.
-21. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
+21. traced_sweep -- the traced suite: the port's own kernels' plain versions
+    and layers lifted through ``torch.fx`` (``repro_torch.frontend``) into the
+    simulator's register IR.  (a) The six lifts in a fresh host process
+    (which must not start CUDA) and in this one: seconds, static
+    instructions, registers, loops and LTRF cycles at Table-2 #7 beside the
+    JAX package's lift (constants); (b) the traced sweep
+    (``benchmarks/sweep_subset.py::sweep_jobs(suite="traced")`` rebuilt from
+    the port: 84 unique sims) through ``SimRunner(device="cuda",
+    batch=True).prefill``, every job batched on the card and held field by
+    field to the port's scalar engine run meanwhile in host worker
+    processes: the service's and the engine's walls, chunks with their
+    lanes and ticks, simulated instructions per second beside the scalar
+    engine's on one host core; (c) ``traced_matmul`` on all 7 designs at
+    #7, 16 warps, through ``run_batch`` on the card, must give
+    ``TRACED_MATMUL_GOLDEN``; (d) a planted lift fault (the dot loop's trip
+    count one higher) must break (c) on every design.
+22. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
     7-17, each counted from 0) in all and per route, error, times and
     bounds per kernel, and each kernel's training launches and backward.
-22. the last line: ``{"ok": true, "device": {...}}``.
+23. the last line: ``{"ok": true, "device": {...}}``.
 
 Weights are random (seeded); the port imports neither jax nor the JAX package.
 Each model's weights are freed before the next model is made.  Bounds use the
@@ -147,6 +165,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -170,6 +189,7 @@ from repro_torch.kernels.ltrf_matmul.ops import DECODE_MAX_CLUSTER  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_scan  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.frontend.workloads import TRACED_NAMES, build_traced_workload  # noqa: E402
 from repro_torch.data import batch_for_step  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.ltrf_matmul import ops as mm_ops  # noqa: E402
@@ -1409,7 +1429,8 @@ def check_train_matmuls(cfg, dev) -> dict:
     transposes' copies) timed against the same two products in cuBLAS and
     their bound, summed over a step's launches."""
     M, gen = TRAIN_B * TRAIN_S, torch.Generator(dev).manual_seed(11)
-    per_shape, tot = [], {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+    per_shape, tot = [], {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0,
+                          "forward_bound_ms": 0.0}
     for (K, N), n in slice_matmuls(cfg):
         x = torch.randn(M, K, device=dev, generator=gen).bfloat16()
         w = (torch.randn(K, N, device=dev, generator=gen) / math.sqrt(K)).bfloat16()
@@ -1441,6 +1462,9 @@ def check_train_matmuls(cfg, dev) -> dict:
         tot["library_ms"] += n * lib
         tot["bound_ms"] += n * b
         tot["launches"] += 2 * n
+        # the forward x @ w of a step's launches at this shape (not timed here)
+        tot["forward_bound_ms"] += n * bound(2 * (M * K + K * N + M * N), 2 * M * K * N,
+                                             torch.bfloat16)[0]
         del x, w, dy
     free_memory()
     return {**tot, "unit": f"the backward products of one {cfg.name} train step, "
@@ -1496,8 +1520,18 @@ def check_train_flash(cfg, dev) -> dict:
 
     lib = eager_ms(sdpa)
     free_memory()
+    # bounds from the shapes: the forward's two products over the causal
+    # (q, k) pairs; the backward's five (S = Q K^T again, dV, dP, dQ, dK),
+    # reading q, k, v, dO and writing dq, dk, dv
+    pairs = B * H * S * (S + 1) / 2
+    fwd_bound = bound((2 * q.numel() + k.numel() + v.numel()) * 2, 4 * d * pairs,
+                      torch.bfloat16)
+    bwd_bound = bound((3 * q.numel() + 2 * k.numel() + 2 * v.numel()) * 2, 10 * d * pairs,
+                      torch.bfloat16)
     return {"unit": f"one layer at B={B}, H={H}, KV={KV}, S={S}, d={d}, bf16, causal",
             **rec, "backward_ms": bwd, "kernel_forward_ms": fwd,
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+            "backward_bound_ms": bwd_bound[0], "backward_bound_by": bwd_bound[1],
             "library_forward_backward_ms": lib, "layers_per_step": cfg.n_layers,
             "backward_ms_per_step": cfg.n_layers * bwd}
 
@@ -1657,9 +1691,20 @@ def time_ssd_backward(cfg, dev) -> dict:
     fwd = eager_ms(lambda: ssd_chunk(*ins, cfg.ssm_chunk))
     del ins, outs, grads
     free_memory()
+    # bounds from the shapes at the fp32 rate: the backward reads the inputs
+    # and the outputs' gradients and writes the inputs' gradients, and does
+    # about 2.5 times the forward's products (as attention's backward does)
+    shape = (GRAD_B, TRAIN_S, H, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
+    nbytes, flops = ssd_work(*shape)
+    B, S, P, N = GRAD_B, TRAIN_S, cfg.ssm_headdim, cfg.ssm_state
+    in_bytes = 4 * (B * S * H * P + B * S * H + H + 2 * B * S * N)
+    fwd_bound, bwd_bound = ssd_bound(*shape), bound(nbytes + in_bytes, 2.5 * flops,
+                                                    torch.float32)
     return {"unit": (f"one layer at B={GRAD_B}, S={TRAIN_S}, H={H}, P={cfg.ssm_headdim}, "
                      f"N={cfg.ssm_state}, Q={cfg.ssm_chunk}, fp32"),
-            "backward_ms": bwd, "kernel_forward_ms": fwd}
+            "backward_ms": bwd, "kernel_forward_ms": fwd,
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+            "backward_bound_ms": bwd_bound[0], "backward_bound_by": bwd_bound[1]}
 
 
 def phase_train_grads(dev, seed) -> dict:
@@ -1701,13 +1746,14 @@ SIM_NARROW_LANES = 8               # the reference's lanes per launch (XLA on th
 SIM_NARROW_WORKLOADS = ("pathfinder", "bfs", "btree", "kmeans")
 
 
-def sim_sweep_jobs(table2_configs=SIM_TABLE2) -> list:
+def sim_sweep_jobs(table2_configs=SIM_TABLE2, names=None) -> list:
     """``benchmarks/sweep_subset.py::sweep_jobs`` (:116-126) rebuilt from the
-    port: 14 workloads x (the §6 baseline + 7 designs) x Table-2 configs,
-    the unique (workload, config) pairs in order."""
+    port: the workloads (the 14 of the default suite unless ``names`` gives a
+    suite's) x (the §6 baseline + 7 designs) x Table-2 configs, the unique
+    (workload, config) pairs in order."""
     jobs, seen = [], set()
     for tc in table2_configs:
-        for name in sim_workload_names():
+        for name in names or sim_workload_names():
             for cfg in [baseline_config()] + [design_config(d, table2_config=tc)
                                               for d in SIM_DESIGNS]:
                 if (name, cfg) not in seen:
@@ -1729,6 +1775,8 @@ def sim_scalar(job):
     """The port's scalar event engine on one job (a host worker's task):
     the result as a dict and its seconds on one core."""
     name, cfg = job
+    if name in TRACED_NAMES:           # a traced workload's lift is timed apart
+        sim_workload(name)
     t0 = time.perf_counter()
     res = sim_engine.simulate(sim_workload(name), cfg)
     return dataclasses.asdict(res), time.perf_counter() - t0
@@ -1865,22 +1913,27 @@ def sim_scalar_gpu(job) -> dict:
 
 @contextlib.contextmanager
 def engine_calls():
-    """Record each call the sweep service makes to the batch engine: its
-    jobs, wall seconds, chunks (launches) and ticks."""
-    calls = []
-    inner = sim_batch.run_batch
+    """Record each lockstep run of the batch engine (``_run_chunks``, once a
+    ``run_batch`` call, after its lanes are encoded) made on the thread that
+    entered this: its jobs, wall seconds, chunks (launches) with their lanes
+    and ticks (the longest lane's, as the reference's ``guard`` counts
+    them), and ticks summed.  Another thread's recorder may nest inside."""
+    calls, owner = [], threading.get_ident()
+    inner = sim_batch._run_chunks
 
-    def timed(jobs, **kw):
-        sim_batch.reset_run_stats()
+    def timed(lane_chunks, device, **opts):
         t0 = time.perf_counter()
-        out = inner(jobs, **kw)
-        calls.append({"jobs": len(jobs), "device": str(kw.get("device")),
-                      "wall_s": time.perf_counter() - t0,
-                      "launches": sim_batch.RUN_STATS["launches"],
-                      "ticks": sim_batch.RUN_STATS["ticks"]})
+        out = inner(lane_chunks, device, **opts)
+        if threading.get_ident() != owner:
+            return out
+        chunks = [{"lanes": len(c), "ticks": int(state["guard"])}
+                  for c, (state, _) in zip(lane_chunks, out)]
+        calls.append({"jobs": sum(c["lanes"] for c in chunks), "device": str(device),
+                      "wall_s": time.perf_counter() - t0, "launches": len(chunks),
+                      "ticks": sum(c["ticks"] for c in chunks), "chunks": chunks})
         return out
 
-    with patched(sim_batch, "run_batch", timed):
+    with patched(sim_batch, "_run_chunks", timed):
         yield calls
 
 
@@ -1992,18 +2045,33 @@ def service_planted_failure(cache_dir, jobs) -> dict:
     return {"jobs": len(jobs), "raised": raised, "computed": runner.stats["computed"]}
 
 
-def service_tracked(cache_dir, host_dir, jobs, scalar_f, out) -> SimRunner:
+def service_host_pool(host_dir, jobs) -> dict:
+    """The tracked sweep on the service's host pool (the scalar engine), for
+    the card's wall to be read against: its results, wall and counters."""
+    host = sweep_runner(host_dir, batch=False)
+    t0 = time.perf_counter()
+    report = host.prefill(jobs)
+    wall = time.perf_counter() - t0
+    check(report.ok and report.computed == len(jobs) and host.stats["batched"] == 0,
+          f"sweep_service host pool: {report_line(report)}")
+    return {"results": [dataclasses.asdict(host.sim(n, c)) for n, c in jobs], "wall_s": wall}
+
+
+def service_tracked(cache_dir, jobs, scalar_f, meanwhile, out) -> tuple:
     """(a) the tracked sweep through ``prefill``, every job batched on the
-    card and held to ``scalar_f`` (the scalar engine's futures); (b) its
-    replay by a fresh runner on the same store; and the same sweep on the
-    service's host pool, for the card's wall to be read against.  Fills
-    ``out`` and returns the runner of (a)."""
-    # (a) the tracked sweep, every job batched on the card
-    runner = sweep_runner(cache_dir)
-    with engine_calls() as calls:
+    card and held to ``scalar_f`` (the scalar engine's futures), while
+    ``meanwhile`` (host work that never runs the batch engine) runs on a
+    host thread; (b) its replay by a fresh runner on the same store.  Fills
+    ``out``; returns the runner of (a), its results and what ``meanwhile``
+    returned."""
+    with engine_calls() as calls, concurrent.futures.ThreadPoolExecutor(1) as lane:
+        on_host = lane.submit(meanwhile)
+        # (a) the tracked sweep, every job batched on the card
+        runner = sweep_runner(cache_dir)
         t0 = time.perf_counter()
         report = runner.prefill(jobs)
         wall = time.perf_counter() - t0
+        on_host = on_host.result()
     check(report.ok and report.computed == len(jobs)
           and runner.stats["batched"] == len(jobs),
           f"sweep_service: {report_line(report)}, batched {runner.stats['batched']}")
@@ -2035,19 +2103,7 @@ def service_tracked(cache_dir, host_dir, jobs, scalar_f, out) -> SimRunner:
     check(not bad_b, f"sweep_service replay: {len(bad_b)} results differ")
     out["replay"] = {"jobs": len(jobs), "cached": report_b.cached,
                      "disk_hits": replay.stats["disk_hits"], "wall_s": wall_b}
-    # the same sweep on the service's host pool (the scalar engine),
-    # for the card's wall to be read against
-    host = sweep_runner(host_dir, batch=False)
-    t0 = time.perf_counter()
-    report_h = host.prefill(jobs)
-    wall_h = time.perf_counter() - t0
-    check(report_h.ok and report_h.computed == len(jobs) and host.stats["batched"] == 0,
-          f"sweep_service host pool: {report_line(report_h)}")
-    bad_h = sim_mismatches([dataclasses.asdict(host.sim(n, c)) for n, c in jobs], got)
-    check(not bad_h, f"sweep_service host pool: {len(bad_h)} results differ")
-    out["host_pool"] = {"jobs": len(jobs), "workers": SIM_SCALAR_WORKERS,
-                        "wall_s": wall_h, "sim_instr_per_s": instr / wall_h}
-    return runner
+    return runner, got, on_host
 
 
 def phase_sweep_service(dev, seed) -> dict:
@@ -2072,13 +2128,34 @@ def phase_sweep_service(dev, seed) -> dict:
         with concurrent.futures.ProcessPoolExecutor(SIM_SCALAR_WORKERS, mp_context=ctx) as pool:
             scalar_f = [pool.submit(sim_scalar, j) for j in jobs]
             gpu_f = [pool.submit(sim_scalar_gpu, j) for j in gpu_jobs]
-            runner = service_tracked(cache / "tracked", cache / "host_pool", jobs, scalar_f, out)
+
+            def on_host():
+                # the host's share, on a thread while the card runs (a), once
+                # the scalar engine's references are done: the same sweep on
+                # the service's host pool, then (d)'s screening grid, whose
+                # confirmations all run on the pool
+                concurrent.futures.wait(scalar_f + gpu_f)
+                host = service_host_pool(cache / "host_pool", jobs)
+                grid_h = service_hybrid(cache / "hybrid", grid)
+                check(grid_h["batched_on_card"] == 0,
+                      "sweep_service hybrid (grid): a confirmation would share the card")
+                return host, grid_h
+
+            runner, got, (host, grid_h) = service_tracked(cache / "tracked", jobs, scalar_f,
+                                                          on_host, out)
+            bad_h = sim_mismatches(host["results"], got)
+            check(not bad_h, f"sweep_service host pool: {len(bad_h)} results differ")
+            instr = out["tracked"]["sim_instructions"]
+            out["host_pool"] = {"jobs": len(jobs), "workers": SIM_SCALAR_WORKERS,
+                                "wall_s": host["wall_s"], "sim_instr_per_s": instr / host["wall_s"],
+                                "during_card_sweep": True}
             # (c) the whole-GPU mini-sweep
             out["whole_gpu"] = service_whole_gpu(cache / "gpu", gpu_jobs,
                                                  [f.result() for f in gpu_f])
-            # (d) the hybrid tier: the screening grid, then its two_level half
+            # (d) the hybrid tier: the screening grid (above), then its
+            # two_level half on the card
             hybrid = out["hybrid"] = {
-                "grid": service_hybrid(cache / "hybrid", grid),
+                "grid": {**grid_h, "during_card_sweep": True},
                 "two_level": service_hybrid(cache / "hybrid_two_level", grid_two_level)}
             conf_f = {k: [pool.submit(sim_scalar, j) for j in h["confirmed"]]
                       for k, h in hybrid.items()}
@@ -2159,6 +2236,146 @@ def phase_sim_batch(dev, seed) -> dict:
                           "jobs": len(fault_jobs), "mismatched": len(fault_bad)},
         "narrow_run": at8, "tick_times": times,
     }
+
+
+# ------------------------------------------------------------ the traced suite
+
+# The JAX package's lift of each traced workload (``repro.frontend``, jax 0.9,
+# constants here, not an import): static instructions, regs_per_thread at
+# maxregcount 64, loops, and LTRF at Table-2 #7, 16 warps, on the scalar
+# engine: cycles and instructions.
+TRACED_JAX_LIFT = {
+    "traced_matmul": (69, 29, 1, 7180, 5584),
+    "traced_attention": (171, 30, 4, 12233, 9456),
+    "traced_ssd": (84, 23, 3, 27449, 17568),
+    "traced_rmsnorm": (22, 8, 1, 1316, 1024),
+    "traced_mlp": (153, 31, 3, 12776, 10640),
+    "traced_attn_layer": (187, 36, 5, 24384, 19104),
+}
+# The lifted matmul's (cycles, instructions, mrf_accesses, rfc_hits,
+# rfc_accesses) at Table-2 #7, 16 warps (tests/test_sim_golden.py:154-162):
+# the port's lift of traced_matmul is the JAX lift's program.
+TRACED_MATMUL_GOLDEN = {
+    "BL": (7857, 5584, 16000, 0, 0),
+    "RFC": (5878, 5584, 7803, 8197, 16000),
+    "SHRF": (10557, 5584, 13416, 16000, 16000),
+    "LTRF": (7180, 5584, 11552, 16000, 16000),
+    "LTRF_conf": (6719, 5584, 11552, 16000, 16000),
+    "LTRF_plus": (5468, 5584, 2512, 16000, 16000),
+    "Ideal": (5381, 5584, 0, 0, 0),
+}
+
+
+def traced_lifts() -> dict:
+    """(a), in a fresh host process: each traced workload lifted from the
+    port's PyTorch functions (``build_traced_workload``: trace, lift,
+    allocate registers), its seconds and shape, LTRF at Table-2 #7 with 16
+    warps on the scalar engine, and whether lifting started CUDA."""
+    out = {}
+    for name in TRACED_NAMES:
+        t0 = time.perf_counter()
+        w = build_traced_workload(name)
+        lift_s = time.perf_counter() - t0
+        r = sim_engine.simulate(w, design_config("LTRF", table2_config=7, num_warps=16))
+        static, regs, loops, cycles, instr = TRACED_JAX_LIFT[name]
+        out[name] = {"lift_s": lift_s, "instructions_static": w.program.num_instrs(),
+                     "regs_per_thread": w.regs_per_thread, "loops": len(w.trips),
+                     "ltrf7_cycles": r.cycles, "ltrf7_instructions": r.instructions,
+                     "jax_lift": {"instructions_static": static, "regs_per_thread": regs,
+                                  "loops": loops, "ltrf7_cycles": cycles,
+                                  "ltrf7_instructions": instr}}
+    return {"workloads": out, "cuda_initialized": torch.cuda.is_initialized()}
+
+
+def sim_counters(r) -> tuple:
+    return (r.cycles, r.instructions, r.mrf_accesses, r.rfc_hits, r.rfc_accesses)
+
+
+def phase_traced_sweep(dev, seed) -> dict:
+    """The traced suite (``repro_torch.frontend``: the port's own kernels'
+    plain versions and layers lifted through ``torch.fx``) on the card: (a)
+    the six lifts, in a fresh host process (no CUDA) and in this one; (b) the
+    traced sweep (``sweep_jobs(suite="traced")`` rebuilt from the port: 84
+    unique sims) through the sweep service, every job batched on the card and
+    held field by field to the port's scalar engine, run meanwhile in host
+    worker processes; (c) ``traced_matmul`` on all 7 designs through
+    ``run_batch`` on the card against ``TRACED_MATMUL_GOLDEN``; (d) a planted
+    lift fault (the dot loop's trip count one higher) must break (c)."""
+    del dev, seed                      # the sweep is fixed; no weights
+    jobs = sim_sweep_jobs(names=TRACED_NAMES)
+    cache = Path(tempfile.mkdtemp(prefix="traced_sweep_"))
+    ctx = multiprocessing.get_context("spawn")
+    out: dict = {}
+    try:
+        with concurrent.futures.ProcessPoolExecutor(SIM_SCALAR_WORKERS, mp_context=ctx) as pool:
+            lifts_f = pool.submit(traced_lifts)
+            scalar_f = [pool.submit(sim_scalar, j) for j in jobs]
+            # (a) the lifts in this process, where CUDA has started
+            t0 = time.perf_counter()
+            for name in TRACED_NAMES:
+                build_traced_workload(name)
+            main_lift_s = time.perf_counter() - t0
+            # (b) the traced sweep through the service, all on the card, while
+            # the fresh process lifts
+            runner = sweep_runner(cache / "traced")
+            with engine_calls() as calls:
+                t0 = time.perf_counter()
+                report = runner.prefill(jobs)
+                wall = time.perf_counter() - t0
+            lifts = lifts_f.result()
+            check(not lifts["cuda_initialized"], "traced_sweep: lifting started CUDA")
+            out["lifts"] = {**lifts, "this_process_s": main_lift_s,
+                            "fresh_process_s": sum(v["lift_s"]
+                                                   for v in lifts["workloads"].values())}
+            check(report.ok and report.computed == len(jobs)
+                  and runner.stats["batched"] == len(jobs),
+                  f"traced_sweep: {report_line(report)}, batched {runner.stats['batched']}")
+            got = [dataclasses.asdict(runner.sim(n, c)) for n, c in jobs]
+            scalar = [f.result() for f in scalar_f]
+        scalar_res = [r for r, _ in scalar]
+        bad = sim_mismatches(got, scalar_res)
+        first = [jobs[i][0] + "/" + jobs[i][1].design for i in bad[:5]]
+        check(not bad, f"traced_sweep: {len(bad)} of {len(jobs)} jobs differ from the "
+                       f"scalar engine (first {first})")
+        scalar_s = sum(s for _, s in scalar)
+        instr = sum(r["instructions"] for r in scalar_res)
+        engine_s = sum(c["wall_s"] for c in calls)
+        out["sweep"] = {
+            "jobs": len(jobs), "identical": len(jobs) - len(bad),
+            "batched": runner.stats["batched"], "service_wall_s": wall,
+            "engine_wall_s": engine_s, "service_overhead_s": wall - engine_s,
+            "chunks": [ch for c in calls for ch in c["chunks"]],
+            "launches": sum(c["launches"] for c in calls),
+            "ticks": sum(c["ticks"] for c in calls),
+            "longest_lane_ticks": max(ch["ticks"] for c in calls for ch in c["chunks"]),
+            "sim_instructions": instr, "sim_instr_per_s": instr / wall,
+            "scalar_cpu_s": scalar_s, "scalar_instr_per_s": instr / scalar_s,
+            "report": report_line(report)}
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    # (c) traced_matmul's pins through run_batch on the card, and in the same
+    # call (d) a planted lift fault: the dot loop's trip count one higher
+    w = get_workload("traced_matmul")
+    (loop, trips), = w.trips.items()
+    planted = dataclasses.replace(w, trips={loop: trips + 1})
+    cfgs = [design_config(d, table2_config=7, num_warps=16) for d in SIM_DESIGNS]
+    t0 = time.perf_counter()
+    res = sim_run_batch([(w, c) for c in cfgs] + [(planted, c) for c in cfgs],
+                        fallback=False, device="cuda")
+    pins_wall = time.perf_counter() - t0
+    pins = [sim_counters(r) for r in res[:len(cfgs)]]
+    faulty = [sim_counters(r) for r in res[len(cfgs):]]
+    wrong = [d for d, got in zip(SIM_DESIGNS, pins) if got != TRACED_MATMUL_GOLDEN[d]]
+    check(not wrong, f"traced_sweep: traced_matmul differs from TRACED_MATMUL_GOLDEN on {wrong}")
+    caught = [d for d, got in zip(SIM_DESIGNS, faulty) if got != TRACED_MATMUL_GOLDEN[d]]
+    check(len(caught) == len(SIM_DESIGNS),
+          f"traced_sweep: the planted trip-count fault passed on "
+          f"{sorted(set(SIM_DESIGNS) - set(caught))}")
+    out["matmul_pins"] = {"designs": len(SIM_DESIGNS), "identical": len(SIM_DESIGNS),
+                          "wall_s": pins_wall,
+                          "planted_fault": {"fault": f"trip count of {loop} {trips} -> {trips + 1}",
+                                            "designs_caught": len(caught)}}
+    return out
 
 
 def kernels_line(cfgs, checks, paths, routes, trained, grads) -> dict:
@@ -2304,6 +2521,7 @@ def main() -> int:
     run("train_grads", phase_train_grads, dev, args.seed)
     run("sweep_service", phase_sweep_service, dev, args.seed)
     run("sim_batch", phase_sim_batch, dev, args.seed)
+    run("traced_sweep", phase_traced_sweep, dev, args.seed)
     line = kernels_line(cfgs, results["kernel_checks"], paths, routes,
                         results["train_tinyllama"], results["train_grads"])
     for k in line["kernels"]:

@@ -39,13 +39,18 @@ The deterministic chaos harness that exercises all of this lives in
 
 Copy of ``repro.serving.sweep`` for the PyTorch port: the same text, with its
 imports of ``repro`` read as ``repro_torch``, except for the names in
-`PORT_REWRITES`.  Those run the batch-supported misses through the port's
+`PORT_REWRITES` and `PORT_ADDITIONS`.  Those run the batch-supported misses through the port's
 `repro_torch.sim.batch.run_batch` on the runner's device (the CUDA card
 unless the caller passes ``device="cpu"``), with no handler around it: a
 whole-batch failure of the engine raises out of `SimRunner.prefill` instead
 of quietly finishing the sweep on the host pool.  Store entries are
-interchangeable with the reference's: `sim_key` and the on-disk envelope are
-the same, and so are the engines' results.
+interchangeable with the reference's: the on-disk envelope is the same, and
+so are the engines' results.  `sim_key` and `analytic_sim_key` are the
+reference's for every workload but those of the port's ``traced`` suite:
+those are lifted from the port's PyTorch functions (`repro_torch.frontend`),
+not the JAX package's, and five of the six are other programs under the same
+names, so their keys also carry the torch lifter's tag and its ``LIFT_REV``
+(`_lifter_revs`) and neither package ever replays the other's traced entries.
 """
 from __future__ import annotations
 
@@ -95,7 +100,11 @@ _MIN_AUTO_BATCH_CPU = float("inf")
 # copies test compares the rest of this module with the original).
 PORT_REWRITES = ("_MIN_AUTO_BATCH_CPU", "_auto_batch_threshold",
                  "_Dispatcher._fresh_pool", "SimRunner.__init__",
-                 "SimRunner._prefill_engine", "SimRunner._prefill_batch")
+                 "SimRunner._prefill_engine", "SimRunner._prefill_batch",
+                 "sim_key", "analytic_sim_key")
+# The port's own helpers, which the reference lacks (left out of the
+# comparison as well).
+PORT_ADDITIONS = ("_lifter_revs",)
 
 
 def _auto_batch_threshold(device) -> int | float:
@@ -131,6 +140,17 @@ def job_label(job: Job) -> str:
     return f"{name}/{cfg.design}/seed{cfg.seed}"
 
 
+def _lifter_revs(workload: str) -> list:
+    """The torch lifter's tag and `LIFT_REV` for a workload of the port's
+    ``traced`` suite, which is another program than the JAX lifter's of the
+    same name; nothing for any other workload, whose keys stay the
+    reference's."""
+    from repro_torch.frontend.fx_lift import LIFT_REV
+    from repro_torch.frontend.workloads import TRACED_NAMES
+
+    return ["fx_lift", LIFT_REV] if workload in TRACED_NAMES else []
+
+
 def sim_key(workload: str, cfg: SimConfig) -> str:
     """Stable on-disk key for one simulation job.
 
@@ -143,11 +163,12 @@ def sim_key(workload: str, cfg: SimConfig) -> str:
     completed result, so budgeted and unbudgeted runs share entries.
     ``trace`` is excluded for the same reason: the event tracer observes a
     run without changing any counter, so traced and untraced runs share
-    entries."""
+    entries.  A workload of the port's ``traced`` suite also carries
+    `_lifter_revs`; every other key is the reference's."""
     cfg_payload = asdict(cfg)
     cfg_payload.pop("max_cycles", None)
     cfg_payload.pop("trace", None)
-    payload = json.dumps([[ENGINE_REV, PLAN_REV, PIPELINE_REV],
+    payload = json.dumps([[ENGINE_REV, PLAN_REV, PIPELINE_REV, *_lifter_revs(workload)],
                           workload, cfg_payload], sort_keys=True)
     return hashlib.sha1(payload.encode()).hexdigest()[:20]
 
@@ -160,13 +181,15 @@ def analytic_sim_key(workload: str, cfg: SimConfig,
     with an ``"analytic"`` tag plus `ANALYTIC_REV`/`CALIB_REV` and the
     calibration coefficient fingerprint, so a fast-tier estimate can never
     collide with (or be replayed as) an engine verdict, and re-fitting the
-    calibration invalidates exactly the estimates it would change."""
+    calibration invalidates exactly the estimates it would change.  As in
+    `sim_key`, a workload of the port's ``traced`` suite also carries
+    `_lifter_revs`."""
     cfg_payload = asdict(cfg)
     cfg_payload.pop("max_cycles", None)
     cfg_payload.pop("trace", None)
     payload = json.dumps(
         [["analytic", ANALYTIC_REV, CALIB_REV, ENGINE_REV, PLAN_REV,
-          PIPELINE_REV], calib.fingerprint(), workload, cfg_payload],
+          PIPELINE_REV, *_lifter_revs(workload)], calib.fingerprint(), workload, cfg_payload],
         sort_keys=True)
     return "an" + hashlib.sha1(payload.encode()).hexdigest()[:18]
 

@@ -627,3 +627,25 @@ def test_sweep_service_batches_on_the_card(dev, tmp_path):
             assert runner.sim(name, cfg) == simulate(w, cfg), cfg.design
     finally:
         del WORKLOADS[name]
+
+
+def test_traced_workloads_batch_on_the_card(dev, tmp_path):
+    """Workloads of the traced suite, lifted in this process, through the
+    sweep service on the card's batch engine, and traced_matmul's 7 designs
+    through ``run_batch`` there: each result the scalar engine's (which
+    tests/test_torch_frontend.py holds to TRACED_MATMUL_GOLDEN)."""
+    from repro_torch.serving import SimRunner
+    from repro_torch.sim import design_config, run_batch, simulate
+    from repro_torch.workloads import get_workload
+    jobs = [(name, design_config(d, table2_config=7, num_warps=4))
+            for name in ("traced_rmsnorm", "traced_ssd") for d in ("BL", "LTRF")]
+    runner = SimRunner(device="cuda", batch=True, processes=1, cache_dir=tmp_path)
+    report = runner.prefill(jobs)
+    assert report.ok and runner.stats["batched"] == len(jobs)
+    for name, cfg in jobs:
+        assert runner.sim(name, cfg) == simulate(get_workload(name), cfg), (name, cfg.design)
+    w = get_workload("traced_matmul")
+    cfgs = [design_config(d, table2_config=7, num_warps=16)
+            for d in ("BL", "RFC", "SHRF", "LTRF", "LTRF_conf", "LTRF_plus", "Ideal")]
+    for cfg, r in zip(cfgs, run_batch([(w, c) for c in cfgs], fallback=False)):
+        assert r == simulate(w, cfg), cfg.design

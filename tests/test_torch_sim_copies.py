@@ -5,7 +5,11 @@ import rewrite (``repro.`` read as ``repro_torch.``) and its docstrings: the
 test compares their syntax trees.  ``serving/sweep.py`` is a copy except for
 the functions and constants it names in ``PORT_REWRITES``: those are left out
 of the comparison, and each must exist in both modules and differ from its
-original.  Beyond the text, the port's scalar event
+original.  The graph lifter (``frontend/fx_lift.py``) is a rewrite of the
+jaxpr lifter, but the parts named in ``LIFTER_VERBATIM`` are its text,
+compared definition by definition; and the port's register allocator must
+give the reference's pinned allocation on the JAX lifts' programs.  Beyond
+the text, the port's scalar event
 engine must give the reference engine's and the golden oracle's results
 field by field (the two packages' dataclasses differ, so ``asdict`` is
 compared), on the Listing-1 pins and on the differential fuzz generators,
@@ -22,9 +26,12 @@ import pytest
 pytest.importorskip("torch")
 
 import test_sim_fuzz as fuzz  # noqa: E402
+from test_frontend import REGALLOC_GOLDEN  # noqa: E402
 from test_sim_golden import LISTING1_BREAKDOWN, LISTING1_GOLDEN  # noqa: E402
 
 import repro.core.plan_cache as ref_plan_cache  # noqa: E402
+import repro.frontend.jaxpr_lift as ref_jaxpr_lift  # noqa: E402
+import repro.frontend.workloads as ref_traced  # noqa: E402
 import repro.sim.batch as ref_batch  # noqa: E402
 import repro.sim.designs as ref_designs  # noqa: E402
 import repro.sim.engine as ref_engine  # noqa: E402
@@ -33,6 +40,7 @@ from repro.sim.golden import golden_simulate  # noqa: E402
 
 import repro_torch.core as port_core  # noqa: E402
 import repro_torch.core.plan_cache as port_plan_cache  # noqa: E402
+import repro_torch.frontend.regalloc as port_regalloc  # noqa: E402
 import repro_torch.serving.sweep as port_sweep  # noqa: E402
 import repro_torch.sim.batch as port_batch  # noqa: E402
 import repro_torch.sim.designs as port_designs  # noqa: E402
@@ -53,9 +61,16 @@ COPIES = [
     # the sweep service slice
     "obs/metrics", "sim/gpu", "sim/power", "sim/analytic", "serving/faults",
     "serving/sweep",
+    # the graph lifter slice
+    "frontend/regalloc", "sim/golden", "workloads/traced", "workloads/__init__",
 ]
-# what a copy rewrites: left out of the comparison, held to differ below
-REWRITES = {"serving/sweep": port_sweep.PORT_REWRITES}
+# the parts of the graph lifter that are the jaxpr lifter's text
+LIFTER_VERBATIM = ("_IR_RESERVED", "_opname", "_tile_trips", "_serial_trips",
+                   "LiftedProgram", "_Emitter")
+# what a copy rewrites or adds: left out of the comparison, held below to
+# differ from the original or to be absent from it
+REWRITES = {"serving/sweep": (*port_sweep.PORT_REWRITES, *port_sweep.PORT_ADDITIONS,
+                              "PORT_REWRITES", "PORT_ADDITIONS")}
 
 
 class _Normalize(ast.NodeTransformer):
@@ -118,9 +133,18 @@ def _paths(module: str) -> tuple[Path, Path]:
 @pytest.mark.parametrize("module", COPIES)
 def test_copy_equals_original_up_to_imports_and_docstrings(module):
     original, copy = _paths(module)
-    leave_out = (*REWRITES[module], "PORT_REWRITES") if module in REWRITES else ()
+    leave_out = REWRITES.get(module, ())
     assert _tree(copy, leave_out) == _tree(original, leave_out), \
         f"{copy} drifted from {original}"
+
+
+@pytest.mark.parametrize("name", LIFTER_VERBATIM)
+def test_lifter_parts_equal_the_jaxpr_lifters(name):
+    defs = [{n: ast.dump(node) for n, _, node in _definitions(_parse(p).body)}
+            for p in (ROOT / "src" / "repro" / "frontend" / "jaxpr_lift.py",
+                      ROOT / "src" / "repro_torch" / "frontend" / "fx_lift.py")]
+    assert name in defs[0] and name in defs[1], name
+    assert defs[1][name] == defs[0][name], f"fx_lift.{name} drifted from jaxpr_lift.{name}"
 
 
 @pytest.mark.parametrize("name", port_sweep.PORT_REWRITES)
@@ -133,6 +157,14 @@ def test_sweep_rewrites_exist_and_differ(name):
     assert defs[0][name] != defs[1][name], f"{name} is listed but not rewritten"
 
 
+@pytest.mark.parametrize("name", port_sweep.PORT_ADDITIONS)
+def test_sweep_additions_are_the_ports_own(name):
+    original, copy = _paths("serving/sweep")
+    defs = [{n for n, _, _ in _definitions(_parse(p).body)} for p in (original, copy)]
+    assert name not in defs[0], f"{name} is in the original: list it in PORT_REWRITES"
+    assert name in defs[1], f"{name} is not in the copy"
+
+
 def test_sweep_copy_check_catches_a_changed_line(tmp_path):
     """Outside the listed rewrites, one changed line is a different tree."""
     original, copy = _paths("serving/sweep")
@@ -141,7 +173,7 @@ def test_sweep_copy_check_catches_a_changed_line(tmp_path):
     assert text.count(old) == 1
     bad = tmp_path / "sweep.py"
     bad.write_text(text.replace(old, old.replace("<", "<=")))
-    leave_out = (*port_sweep.PORT_REWRITES, "PORT_REWRITES")
+    leave_out = REWRITES["serving/sweep"]
     assert _tree(bad, leave_out) != _tree(original, leave_out)
 
 
@@ -248,3 +280,20 @@ def test_compiled_plans_equal(design):
                 assert va.dtype == vb.dtype, f
             else:
                 assert va == vb, f
+
+
+@pytest.mark.parametrize("name", ref_traced.TRACED_NAMES)
+def test_port_regalloc_on_the_jax_lifts(name):
+    """The port's allocator on the JAX lifter's programs (rendered, the
+    blocks' generated labels dropped, and parsed by the port's ``parse_asm``)
+    gives the reference's pinned allocation, at both register budgets."""
+    spec = ref_traced.TRACED_SPECS[name]
+    fn, args = spec.builder()
+    lifted = ref_jaxpr_lift.lift_fn(fn, args, name=name, while_trips=spec.while_trips)
+    text = "\n".join(ln for ln in lifted.prog.render().splitlines() if not ln.startswith("."))
+    prog = port_parse_asm(text, name=name)
+    assert prog.render() == lifted.prog.render()
+    for mrc in (64, 24):
+        a = port_regalloc.allocate_registers(prog, maxregcount=mrc)
+        got = (a.regs_per_thread, a.spill_count, a.spill_loads, a.spill_stores)
+        assert got == REGALLOC_GOLDEN[(name, mrc)], (name, mrc, got)
