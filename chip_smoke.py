@@ -138,10 +138,31 @@ exits non-zero; no phase's error is caught):
     #7, 16 warps, through ``run_batch`` on the card, must give
     ``TRACED_MATMUL_GOLDEN``; (d) a planted lift fault (the dot loop's trip
     count one higher) must break (c) on every design.
-22. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
-    7-17, each counted from 0) in all and per route, error, times and
+22. mesh -- the mesh layer (``repro_torch.distributed``, ``launch.mesh``,
+    ``launch.dryrun``): (a) tinyllama-1.1b at full width and depth on
+    ``make_host_mesh()`` (a one-rank NCCL group) with ``default_rules``
+    ("2d"): the state placed by ``reshard_state``, 2 steps through
+    ``build_train_step(..., rules=rules)`` under deterministic algorithms,
+    bit-identical (loss, grad norm, every parameter and moment) to the same 2
+    steps without rules, ms a step with and without; (b) zamba2-1.2b cut to
+    its first 6 layers (one shared attention block) and granite-moe-3b-a800m
+    cut to 2, ``loss_fn`` (the prefill step) at B=2 x S=1024 under the rules,
+    bit-identical to without (``ssd_scan``, flash and the MoE dispatch
+    through their DTensor call sites); (c) ``pipeline_forward`` over a
+    one-rank stage mesh, tinyllama's dense block as the stage, 4
+    microbatches of 2 x 1024, bit-identical to ``sequential_reference``;
+    every launch of (a)-(c) on ``wgmma``; (d) the dry-run (one architecture
+    per family x train_4k and decode_32k on the 16x16 production mesh, and
+    tinyllama train_4k on 2x16x16), run by ``python -m
+    repro_torch.launch.dryrun`` in three host processes that see no card,
+    started after the build and read here: each cell's seconds, per-device
+    argument and peak GiB, per-rank FLOPs and collectives by kind, and the
+    tracked sweep's card wall beside its wall before the dry-run ran beside
+    the card.
+23. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
+    7-17 and 22, each counted from 0) in all and per route, error, times and
     bounds per kernel, and each kernel's training launches and backward.
-23. the last line: ``{"ok": true, "device": {...}}``.
+24. the last line: ``{"ok": true, "device": {...}}``.
 
 Weights are random (seeded); the port imports neither jax nor the JAX package.
 Each model's weights are freed before the next model is made.  Bounds use the
@@ -177,7 +198,9 @@ sys.path.insert(0, str(ROOT / "src"))
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -193,18 +216,24 @@ from repro_torch.frontend.workloads import TRACED_NAMES, build_traced_workload  
 from repro_torch.data import batch_for_step  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.ltrf_matmul import ops as mm_ops  # noqa: E402
+from repro_torch.distributed import (  # noqa: E402
+    default_rules, pipeline_forward, reshard_state, sequential_reference,
+)
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
-    build_eval_step, build_train_step, grads_of, make_train_state, to_device,
+    build_eval_step, build_prefill_step, build_train_step, grads_of, make_train_state,
+    to_device,
 )
+from repro_torch.runtime.train_step import train_state_axes, train_state_shapes  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models import layers, mamba2, moe  # noqa: E402
 from repro_torch.models import lm as lm_module  # noqa: E402
 from repro_torch.models.lm import (  # noqa: E402
     ATTN_FAMILIES, decode_step, head_width, held_width, init_decode_cache, init_params,
-    logits_fn, loss_fn,
+    logits_fn, loss_fn, param_axes, param_shapes,
 )
 from repro_torch.serving import SimRunner, sim_key  # noqa: E402
 from repro_torch.sim import TOLERANCE_MULTS, baseline_config, design_config  # noqa: E402
@@ -2378,6 +2407,214 @@ def phase_traced_sweep(dev, seed) -> dict:
     return out
 
 
+# --- the mesh layer ----------------------------------------------------------
+#
+# mesh: (a) tinyllama-1.1b at full width and depth, 2 train steps on a
+# one-rank NCCL mesh through the sharding rules, against the same 2 steps
+# without rules; (b) zamba2-1.2b cut to its first 6 layers (one shared
+# attention block) and granite-moe-3b-a800m cut to 2, loss_fn at B=2 x
+# S=1024; (c) the GPipe schedule over a one-rank stage mesh; (d) the dry-run
+# cells, run in host processes from the start of the script.
+MESH_STEPS = 2
+MESH_CUTS = {HYBRID_ARCH: 6, MOE_ARCH: 2}
+MESH_MICRO, MESH_MB = 4, 2
+DRYRUN_ARCHS = (ARCH, MOE_ARCH, "llava-next-34b", AUDIO_ARCH, SSM_ARCH, HYBRID_ARCH)
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+# the tracked sweep's card wall on an H100 80GB HBM3 at 700 W before the
+# dry-run ran beside it (PERF.md §5): its cost shows against this
+TRACKED_WALL_BEFORE_S = 392.4
+
+
+def dryrun_start(out_dir: Path) -> list:
+    """(d): the dry-run's cells (``python -m repro_torch.launch.dryrun``) in
+    three host processes that may not start CUDA (no card visible to them):
+    the single-pod cells in two, tinyllama's multi-pod cell in the third, at
+    a lower scheduling priority than this process, whose host thread feeds
+    the card."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for stale in out_dir.glob("*.json"):         # an earlier run's cells
+        stale.unlink()
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])}
+    half = len(DRYRUN_ARCHS) // 2
+    argvs = [["--arch", *DRYRUN_ARCHS[:half], "--shape", *DRYRUN_SHAPES],
+             ["--arch", *DRYRUN_ARCHS[half:], "--shape", *DRYRUN_SHAPES],
+             ["--arch", ARCH, "--shape", "train_4k", "--multi-pod"]]
+    procs = []
+    for i, argv in enumerate(argvs):
+        log = open(out_dir / f"dryrun_{i}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out-dir", str(out_dir)],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+        log.close()
+        os.setpriority(os.PRIO_PROCESS, procs[-1].pid, 10)
+    return procs
+
+
+def dryrun_read(procs, out_dir: Path, started: float) -> dict:
+    """(d)'s cells, once their processes end: each cell's record, in short,
+    and when the last cell was written (seconds after ``started``, a
+    ``time.time()``)."""
+    for i, proc in enumerate(procs):
+        check(proc.wait() == 0, f"mesh: the dry-run exited {proc.returncode}: "
+                                f"{(out_dir / f'dryrun_{i}.log').read_text()[-2000:]}")
+    done = max(p.stat().st_mtime for p in out_dir.glob("*.json")) - started
+    cells = {}
+    for mesh_name, archs, shapes in [("pod16x16", DRYRUN_ARCHS, DRYRUN_SHAPES),
+                                     ("pod2x16x16", (ARCH,), ("train_4k",))]:
+        for a in archs:
+            for shp in shapes:
+                rec = json.loads((out_dir / f"{a}_{shp}_{mesh_name}.json").read_text())
+                check(rec["ok"] and not rec["cuda_initialized"],
+                      f"mesh: dry-run cell {a} {shp} {mesh_name}: {rec.get('error', rec)}")
+                mem, coll = rec["memory"], rec["collectives"]
+                cells[f"{a}/{shp}/{mesh_name}"] = {
+                    "ok": rec["ok"], "trace_s": rec["trace_s"], "n_micro": rec.get("n_micro"),
+                    "argument_gib": mem["argument_size_in_bytes"] / 2 ** 30,
+                    "peak_gib": mem["peak_bytes"] / 2 ** 30,
+                    "head_padding_bytes": mem["head_padding_bytes"],
+                    "flops_per_rank": rec["cost"]["flops"],
+                    "collectives": {k: v for k, v in coll.items()
+                                    if isinstance(v, dict) and v["count"]},
+                    "cuda_initialized": rec["cuda_initialized"]}
+    return {"cells": cells, "done_after_s": done}
+
+
+def counted(fn, *a):
+    """``fn(*a)`` with every launch count set to 0 first: (result, counts,
+    routes) of that run alone."""
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn(*a)
+    torch.cuda.synchronize()
+    return out, read_counts(), read_routes()
+
+
+def timed_steps(step, state, batches) -> tuple:
+    walls, metrics = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics, walls
+
+
+def mesh_train(cfg, dev, seed, rules) -> tuple:
+    """(a): 2 steps from one state with the rules (the state placed by
+    ``reshard_state``) and without; bit-identical under deterministic
+    algorithms."""
+    shape = ShapeConfig("chip_mesh", TRAIN_S, TRAIN_B, "train")
+    batches = [batch_for_step(cfg, shape, s, seed + 1) for s in range(MESH_STEPS)]
+    state = make_train_state(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    plain = tree_map(torch.clone, state)
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain, plain_m, plain_walls = timed_steps(build_train_step(cfg, TRAIN_OPT), plain, batches)
+        placed, _ = reshard_state(state, train_state_axes(cfg), rules.mesh,
+                                  shapes_tree=train_state_shapes(cfg))
+        del state
+        (placed, mesh_m, mesh_walls), counts, routes = counted(
+            timed_steps, build_train_step(cfg, TRAIN_OPT, rules=rules), placed, batches)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(a, b.to_local())
+               for a, b in zip(tree_leaves(plain), tree_leaves(placed)))
+    out = {"steps": MESH_STEPS, "batch": TRAIN_B, "seq": TRAIN_S,
+           "placements": sorted({str(tuple(t.placements)) for t in tree_leaves(placed)}),
+           "losses": [m["loss"] for m in mesh_m], "grad_norms": [m["grad_norm"] for m in mesh_m],
+           "step_ms_mesh": mesh_walls, "step_ms_plain": plain_walls,
+           "bit_identical_state": same,
+           "bit_identical_metrics": mesh_m == plain_m,
+           "launches": counts, "launches_by_route": routes}
+    del plain, placed
+    free_memory()
+    want = {k: MESH_STEPS * v for k, v in train_step_launches(cfg).items()}
+    check(counts == want, f"mesh train launches {counts}, want {want}")
+    check(same and out["bit_identical_metrics"],
+          f"mesh: the train steps under the rules differ from the steps without: {out}")
+    return out, counts, routes
+
+
+def mesh_loss(cfg, dev, seed, rules) -> tuple:
+    """(b): ``loss_fn`` (the prefill step) at B=2 x S=1024 with the rules and
+    without, from the same weights: the same bits."""
+    params = init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    batch = prefill_batch(cfg, dev, seed)
+    plain = build_prefill_step(cfg)(params, batch)
+    placed, _ = reshard_state(params, param_axes(cfg), rules.mesh, shapes_tree=param_shapes(cfg))
+    got, counts, routes = counted(build_prefill_step(cfg, rules=rules), placed, batch)
+    out = {"layers": cfg.n_layers, "loss": float(got["loss"]), "aux_loss": float(got["aux_loss"]),
+           "bit_identical": all(torch.equal(got[k], plain[k]) for k in plain),
+           "launches": counts, "launches_by_route": routes}
+    del params, placed
+    free_memory()
+    check(counts == forward_launches(cfg), f"mesh {cfg.name} launches {counts}")
+    check(out["bit_identical"], f"mesh: {cfg.name}'s loss under the rules differs: {out}")
+    return out, counts, routes
+
+
+def mesh_pipeline(cfg, dev, seed) -> tuple:
+    """(c): the GPipe schedule over a one-rank stage mesh, tinyllama's dense
+    block as the stage, against ``sequential_reference``: the same bits."""
+    one = dataclasses.replace(cfg, n_layers=1)
+    layer = init_params(one, torch.Generator(dev).manual_seed(seed), dev)["layers"][0]
+    stacked = tree_map(lambda t: t[None], layer)
+    gen = torch.Generator(dev).manual_seed(seed + 2)
+    x = torch.randn(MESH_MICRO, MESH_MB, TRAIN_S, cfg.d_model, device=dev, generator=gen,
+                    dtype=cfg.torch_dtype)
+    positions = torch.arange(TRAIN_S, dtype=torch.int32, device=dev).expand(MESH_MB, TRAIN_S)
+
+    def stage(p, h):
+        return lm_module._dense_block(cfg, p, h, positions, True)[0]
+
+    stage_mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    with torch.no_grad():
+        want = sequential_reference(stage, stacked, x)
+        got, counts, routes = counted(pipeline_forward, stage, stacked, x, stage_mesh)
+    out = {"microbatches": MESH_MICRO, "microbatch": [MESH_MB, TRAIN_S], "stages": 1,
+           "bit_identical": bool(torch.equal(got, want)), "launches": counts,
+           "launches_by_route": routes}
+    check(out["bit_identical"], "mesh: the GPipe schedule differs from sequential_reference")
+    return out, counts, routes
+
+
+def phase_mesh(cfgs, dev, seed, dryrun, tracked_wall_s) -> dict:
+    """The mesh layer on the card: (a)-(c) on a one-rank NCCL mesh
+    (``make_host_mesh``) with ``default_rules``, every kernel launch on its
+    route; (d) the dry-run's cells, read from their host processes, and the
+    tracked sweep's card wall (``tracked_wall_s``) beside its wall before
+    the dry-run ran beside the card."""
+    own = not dist.is_initialized()
+    mesh = make_host_mesh(device=dev)
+    rules = default_rules(mesh)
+    out: dict = {"mesh": {"shape": list(mesh.mesh.shape), "backend": dist.get_backend()}}
+    runs = []
+    try:
+        out["train"], *r = mesh_train(cfgs[0], dev, seed, rules)
+        runs.append(r)
+        for name, n in MESH_CUTS.items():
+            cfg = dataclasses.replace(get_arch(name), n_layers=n)
+            out[f"loss_{name}"], *r = mesh_loss(cfg, dev, seed, rules)
+            runs.append(r)
+        out["pipeline"], *r = mesh_pipeline(cfgs[0], dev, seed)
+        runs.append(r)
+    finally:
+        if own:
+            dist.destroy_process_group()
+    out["launches"] = {n: sum(c[n] for c, _ in runs) for n in KERNELS}
+    out["launches_by_route"] = {n: {k: sum(rt[n][k] for _, rt in runs) for k in rs}
+                                for n, rs in runs[0][1].items()}
+    for name, by_route in out["launches_by_route"].items():
+        check(by_route["wgmma"] == out["launches"][name],
+              f"mesh {name} routes {by_route}: every launch on wgmma")
+    out["dryrun"] = dryrun_read(*dryrun)
+    out["tracked_sweep_wall_s"] = {"this_run": tracked_wall_s,
+                                   "before_the_dryrun": TRACKED_WALL_BEFORE_S}
+    return out
+
+
 def kernels_line(cfgs, checks, paths, routes, trained, grads) -> dict:
     """``paths``: each main path's launch counts, by phase; ``routes``: the
     same per route, for the kernels that have routes; ``trained`` and
@@ -2491,49 +2728,62 @@ def main() -> int:
     t_start = time.perf_counter()
     run("device", phase_device)
     run("build", phase_build)
-    run("kernel_checks", phase_kernel_checks, cfgs, dev)
-    paths, routes = {}, {}
-    for cfg, phases in [
-            (cfgs[0], [("prefill", phase_prefill), ("serve", phase_serve)]),
-            (cfgs[1], [("prefill_mamba2", phase_prefill_mamba2),
-                       ("serve_mamba2", phase_serve_mamba2)]),
-            (cfgs[2], [("prefill_zamba2", phase_prefill_zamba2)]),
-            (cfgs[3], [("prefill_granite_moe", family_prefill),
-                       ("serve_granite_moe", family_serve)]),
-            (cfgs[4], [("prefill_musicgen", family_prefill), ("serve_musicgen", family_serve)]),
-            (cfgs[5], [("prefill_llava", family_prefill)]),
-            (cfgs[6], [("prefill_dbrx", family_prefill)])]:
-        params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed), dev)
-        for name, fn in phases:
-            run(name, fn, cfg, params, dev, args.seed)
+    # the mesh phase's dry-run (d) runs on the host from here on, beside the
+    # card; its processes are stopped whatever happens
+    dry_dir = ROOT / "chiprun_out" / "dryrun_torch"
+    dry_procs = dryrun_start(dry_dir)
+    dryrun = (dry_procs, dry_dir, time.time())
+    try:
+        run("kernel_checks", phase_kernel_checks, cfgs, dev)
+        paths, routes = {}, {}
+        for cfg, phases in [
+                (cfgs[0], [("prefill", phase_prefill), ("serve", phase_serve)]),
+                (cfgs[1], [("prefill_mamba2", phase_prefill_mamba2),
+                           ("serve_mamba2", phase_serve_mamba2)]),
+                (cfgs[2], [("prefill_zamba2", phase_prefill_zamba2)]),
+                (cfgs[3], [("prefill_granite_moe", family_prefill),
+                           ("serve_granite_moe", family_serve)]),
+                (cfgs[4], [("prefill_musicgen", family_prefill), ("serve_musicgen", family_serve)]),
+                (cfgs[5], [("prefill_llava", family_prefill)]),
+                (cfgs[6], [("prefill_dbrx", family_prefill)])]:
+            params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed), dev)
+            for name, fn in phases:
+                run(name, fn, cfg, params, dev, args.seed)
+                paths[name] = results[name]["launches"]
+                routes[name] = results[name]["launches_by_route"]
+            if cfg.name == ARCH:
+                run("profile", phase_profile, cfg, params, dev)
+            del params
+            free_memory()
+        run("prefill_dense_wide", phase_prefill_dense_wide, cfgs[7:], dev, args.seed)
+        run("train_tinyllama", phase_train_tinyllama, cfgs[0], dev, args.seed)
+        run("train_replay", phase_train_replay, dev, args.seed)
+        for name in ("prefill_dense_wide", "train_tinyllama", "train_replay"):
             paths[name] = results[name]["launches"]
             routes[name] = results[name]["launches_by_route"]
-        if cfg.name == ARCH:
-            run("profile", phase_profile, cfg, params, dev)
-        del params
-        free_memory()
-    run("prefill_dense_wide", phase_prefill_dense_wide, cfgs[7:], dev, args.seed)
-    run("train_tinyllama", phase_train_tinyllama, cfgs[0], dev, args.seed)
-    run("train_replay", phase_train_replay, dev, args.seed)
-    for name in ("prefill_dense_wide", "train_tinyllama", "train_replay"):
-        paths[name] = results[name]["launches"]
-        routes[name] = results[name]["launches_by_route"]
-    run("train_grads", phase_train_grads, dev, args.seed)
-    run("sweep_service", phase_sweep_service, dev, args.seed)
-    run("sim_batch", phase_sim_batch, dev, args.seed)
-    run("traced_sweep", phase_traced_sweep, dev, args.seed)
-    line = kernels_line(cfgs, results["kernel_checks"], paths, routes,
-                        results["train_tinyllama"], results["train_grads"])
-    for k in line["kernels"]:
-        check(k["launches"] > 0, f"{k['name']} never launched on the main path")
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {**results, **line, "total_s": time.perf_counter() - t_start}, indent=1))
-    emit(line)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+        run("train_grads", phase_train_grads, dev, args.seed)
+        run("sweep_service", phase_sweep_service, dev, args.seed)
+        run("sim_batch", phase_sim_batch, dev, args.seed)
+        run("traced_sweep", phase_traced_sweep, dev, args.seed)
+        run("mesh", phase_mesh, cfgs, dev, args.seed, dryrun,
+            results["sweep_service"]["tracked"]["service_wall_s"])
+        paths["mesh"] = results["mesh"]["launches"]
+        routes["mesh"] = results["mesh"]["launches_by_route"]
+        line = kernels_line(cfgs, results["kernel_checks"], paths, routes,
+                            results["train_tinyllama"], results["train_grads"])
+        for k in line["kernels"]:
+            check(k["launches"] > 0, f"{k['name']} never launched on the main path")
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke.json").write_text(json.dumps(
+            {**results, **line, "total_s": time.perf_counter() - t_start}, indent=1))
+        emit(line)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    finally:
+        for proc in dry_procs:
+            proc.kill()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-from .base import SHAPES, ArchConfig, ShapeConfig, cell_is_runnable, smoke_shape
-from .registry import ARCH_IDS, get_arch, get_smoke
+from .base import SHAPES, ArchConfig, ShapeConfig, cell_is_runnable, input_specs, smoke_shape
+from .registry import ARCH_IDS, all_cells, get_arch, get_smoke
 
-__all__ = ["ArchConfig", "ARCH_IDS", "SHAPES", "ShapeConfig", "cell_is_runnable",
-           "get_arch", "get_smoke", "smoke_shape"]
+__all__ = ["ArchConfig", "ARCH_IDS", "SHAPES", "ShapeConfig", "all_cells", "cell_is_runnable",
+           "get_arch", "get_smoke", "input_specs", "smoke_shape"]

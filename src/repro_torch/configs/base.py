@@ -3,8 +3,8 @@
 ``ArchConfig`` carries the same fields as the JAX package's, with the same
 analytic parameter counts; its dtype glue is ``torch_dtype`` in place of
 ``jdtype``.  ``ShapeConfig``, ``SHAPES``, ``cell_is_runnable`` and
-``smoke_shape`` are copies.  The dry-run's ``input_specs`` is not part of
-this package yet (ROADMAP queue 1 item 6).
+``smoke_shape`` are copies; the dry-run's ``input_specs`` gives meta tensors
+where the reference gives ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
@@ -134,6 +134,36 @@ def cell_is_runnable(arch: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
     if shape.name == "long_500k" and not arch.sub_quadratic:
         return False, "full quadratic attention at 524k context: skipped per assignment"
     return True, ""
+
+
+def input_specs(arch: ArchConfig, shape: ShapeConfig) -> dict:
+    """Meta-tensor stand-ins for every model input of this cell, with the
+    reference's dtypes (int32 tokens, labels and ``cache_len``; the arch's
+    dtype for patches)."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def spec(shp, dtype=i32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if arch.family == "vlm":
+            n_img = arch.n_patches
+            return {
+                "tokens": spec((B, S - n_img)),
+                "patches": spec((B, n_img, arch.d_model), arch.torch_dtype),
+                "labels": spec((B, S)),
+            }
+        if arch.family == "audio":
+            K = arch.n_codebooks
+            return {"codes": spec((B, K, S)), "labels": spec((B, K, S))}
+        return {"tokens": spec((B, S)), "labels": spec((B, S))}
+    # decode: one new token against a seq_len-deep cache
+    if arch.family == "audio":
+        tok = spec((B, arch.n_codebooks, 1))
+    else:
+        tok = spec((B, 1))
+    return {"tokens": tok, "cache_len": spec(())}
 
 
 def smoke_shape(kind: str = "train") -> ShapeConfig:

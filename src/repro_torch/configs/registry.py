@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import importlib
 
-from .base import ArchConfig
+from .base import SHAPES, ArchConfig, cell_is_runnable
 
 ARCH_IDS = [
     "phi3-medium-14b",
@@ -36,3 +36,14 @@ def get_arch(arch_id: str) -> ArchConfig:
 
 def get_smoke(arch_id: str) -> ArchConfig:
     return _module(arch_id).smoke()
+
+
+def all_cells() -> list[tuple[str, str, bool, str]]:
+    """[(arch_id, shape_name, runnable, skip_reason)] for all 40 cells."""
+    out = []
+    for a in ARCH_IDS:
+        cfg = get_arch(a)
+        for s in SHAPES.values():
+            ok, why = cell_is_runnable(cfg, s)
+            out.append((a, s.name, ok, why))
+    return out

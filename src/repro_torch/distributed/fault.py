@@ -17,12 +17,15 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import TYPE_CHECKING, Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from ..checkpoint import Checkpointer
 from ..tree import tree_leaves, tree_map
+
+if TYPE_CHECKING:      # the checkpoint package imports the models, which import this one
+    from ..checkpoint import Checkpointer
 
 log = logging.getLogger("repro_torch.fault")
 
@@ -56,7 +59,7 @@ class FaultTolerantTrainer:
             # which the step function has already consumed
             self.checkpointer.save(0, init_state)
             return init_state, 0
-        state = self.checkpointer.restore(last, init_state)
+        state = _relayout(self.checkpointer.restore(last, init_state), init_state)
         self.loader.restore(last)
         log.info("resumed from checkpoint step %d", last)
         return state, last
@@ -66,6 +69,7 @@ class FaultTolerantTrainer:
         device = tree_leaves(init_state)[0].device
         template = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
                             init_state)
+        layout = tree_map(_layout, init_state)
         state, start = self.resume(init_state)
         step = start
         metrics_log = []
@@ -84,7 +88,7 @@ class FaultTolerantTrainer:
                 self.checkpointer.wait()  # let any in-flight write commit
                 last = self.checkpointer.latest_step()
                 assert last is not None  # step-0 checkpoint always exists
-                state = self.checkpointer.restore(last, template, device)
+                state = _relayout(self.checkpointer.restore(last, template, device), layout)
                 step = last
                 self.loader.restore(step)
                 continue
@@ -103,3 +107,18 @@ class FaultTolerantTrainer:
         if done < want:
             self._injected[step] = done + 1
             raise SimulatedFailure(f"injected failure at step {step}")
+
+
+def _layout(x):
+    """A DTensor leaf's (mesh, placements); None for a plain tensor."""
+    return (x.device_mesh, x.placements) if isinstance(x, DTensor) else None
+
+
+def _relayout(state, like):
+    """A restored state (plain tensors) placed as ``like``'s DTensor leaves
+    are (``like``: a state, or a tree of ``_layout``s)."""
+    def one(t, ref):
+        lay = _layout(ref) if isinstance(ref, torch.Tensor) else ref
+        return t if lay is None else distribute_tensor(t, *lay)
+
+    return tree_map(one, state, like)

@@ -1,15 +1,20 @@
-"""Training driver: the fault-tolerant trainer on one device (port of
+"""Training driver: the fault-tolerant trainer on the local mesh (port of
 ``repro.launch.train``).
 
 ``python -m repro_torch.launch.train --arch tinyllama-1.1b --full --steps 6``
 
-Data (the deterministic pipeline) -> train step (AdamW, optional int8
-gradient compression and microbatches) -> periodic checkpoints -> restore
-and replay on a failure.  On the CUDA card, which is the default device,
-the step's gradients run through the hand-written kernels; asked for
-``cuda`` without a card it raises, as ``resolve_device`` does, and never
-carries on on the CPU (``--device cpu`` runs the plain path there).
-``layers`` cuts the config's depth, keeping its widths.
+Data (the deterministic pipeline) -> sharded train step (AdamW, optional
+int8 gradient compression and microbatches) -> periodic checkpoints ->
+restore and replay on a failure.  As in the reference, the state is placed
+on ``make_host_mesh()`` by ``default_rules`` (``shardings_for`` over the
+state's logical axes, then ``place``) and the step is built with those
+rules; a process group that ``train`` starts for the mesh (one rank, when
+none is up) it also ends, and the final state it returns is gathered into
+plain tensors.  On the CUDA card, which is the default device, the step's
+gradients run through the hand-written kernels; asked for ``cuda`` without a
+card it raises, as ``resolve_device`` does, and never carries on on the CPU
+(``--device cpu`` runs the plain path there).  ``layers`` cuts the config's
+depth, keeping its widths.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .. import resolve_device
 from ..checkpoint import Checkpointer
@@ -28,9 +35,14 @@ from ..configs import get_arch, get_smoke
 from ..configs.base import ShapeConfig
 from ..data import DataConfig, PrefetchingLoader
 from ..distributed.fault import FaultConfig, FaultTolerantTrainer
+from ..distributed.sharding import default_rules, place, shardings_for
 from ..optim.adamw import AdamWConfig
 from ..optim.compression import CompressionConfig
-from ..runtime.train_step import build_train_step, make_train_state
+from ..runtime.train_step import (
+    build_train_step, make_train_state, train_state_axes, train_state_shapes,
+)
+from ..tree import tree_map
+from .mesh import make_host_mesh
 
 log = logging.getLogger("repro_torch.train")
 
@@ -46,12 +58,26 @@ def train(arch_id: str, smoke: bool = True, steps: int = 50,
         cfg = dataclasses.replace(cfg, n_layers=layers)
     dev = resolve_device(device)
     shape = ShapeConfig("driver", seq, batch, "train")
-    state = make_train_state(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    own_group = not dist.is_initialized()
+    mesh = make_host_mesh(device=dev)
+    try:
+        rules = default_rules(mesh)
+        state = make_train_state(cfg, torch.Generator(dev).manual_seed(seed), dev)
+        state = place(state, shardings_for(rules, train_state_axes(cfg),
+                                           train_state_shapes(cfg)))
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=max(steps, 1))
+        comp = CompressionConfig(enabled=True) if compress else None
+        step_fn = build_train_step(cfg, opt_cfg, comp, n_micro=n_micro, rules=rules)
+        out = _run(cfg, arch_id, shape, state, step_fn, steps, ckpt_dir, ckpt_every,
+                   inject_failures, seed, dev)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+    return out
 
-    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=max(steps, 1))
-    comp = CompressionConfig(enabled=True) if compress else None
-    step_fn = build_train_step(cfg, opt_cfg, comp, n_micro=n_micro)
 
+def _run(cfg, arch_id, shape, state, step_fn, steps, ckpt_dir, ckpt_every, inject_failures,
+         seed, dev) -> dict:
     loader = PrefetchingLoader(cfg, shape, DataConfig(seed=seed + 1))
     # without a ckpt_dir, the run's checkpoints live in a directory of its own,
     # removed when it ends: a later run never resumes from them
@@ -78,7 +104,7 @@ def train(arch_id: str, smoke: bool = True, steps: int = 50,
         "straggler_fallbacks": loader.straggler_fallbacks,
         "wall_s": dt,
         "ckpt_timings": dict(ckpt.timings),
-        "state": state,
+        "state": tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, state),
     }
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
@@ -40,6 +41,8 @@ def to_host(t: torch.Tensor):
 
 
 def _host(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    if isinstance(t, DTensor):      # a sharded leaf is gathered whole
+        t = t.full_tensor()
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), BF16

@@ -19,7 +19,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from ..distributed import sites
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.ltrf_matmul.ops import ltrf_matmul
 
@@ -32,12 +34,19 @@ def _init(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Ten
     return (x * scale).to(dtype)
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor, kernels: bool = True) -> torch.Tensor:
-    """x (..., K) @ w (K, N): through ``ltrf_matmul`` unless ``kernels`` is off."""
+def _local_matmul(x: torch.Tensor, w: torch.Tensor, kernels: bool) -> torch.Tensor:
     if not kernels:
         return x @ w
     lead = x.shape[:-1]
     return ltrf_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w).reshape(*lead, w.shape[1])
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+    """x (..., K) @ w (K, N): through ``ltrf_matmul`` unless ``kernels`` is off;
+    DTensors through their call site (``distributed.sites.matmul``)."""
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        return sites.matmul(lambda xl, wl: _local_matmul(xl, wl, kernels), x, w)
+    return _local_matmul(x, w, kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -53,6 +62,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
 
 def init_rms(d: int, device, dtype=torch.float32) -> torch.Tensor:
     return torch.ones((d,), dtype=dtype, device=device)
+
+
+RMS_AXES = ("embed",)          # the logical axes of an ``init_rms`` weight
 
 
 # ---------------------------------------------------------------------------
@@ -99,12 +111,21 @@ def init_attention(gen, d_model, n_heads, n_kv, head_dim, qk_norm, dtype, device
     return params
 
 
+def attention_axes(qk_norm: bool) -> dict:
+    """The logical axes of ``init_attention``'s params."""
+    axes = {"wq": ("embed", "heads"), "wk": ("embed", "kv"), "wv": ("embed", "kv"),
+            "wo": ("heads", "embed")}
+    if qk_norm:
+        axes["q_norm"] = (None,)
+        axes["k_norm"] = (None,)
+    return axes
+
+
 def _qkv(params, x, n_heads, n_kv, head_dim, positions, qk_norm, rope_theta,
          norm_eps, kernels=True):
-    B, S, _ = x.shape
-    q = matmul(x, params["wq"], kernels).reshape(B, S, n_heads, head_dim)
-    k = matmul(x, params["wk"], kernels).reshape(B, S, n_kv, head_dim)
-    v = matmul(x, params["wv"], kernels).reshape(B, S, n_kv, head_dim)
+    q = sites.unflatten_last(matmul(x, params["wq"], kernels), n_heads, head_dim)
+    k = sites.unflatten_last(matmul(x, params["wk"], kernels), n_kv, head_dim)
+    v = sites.unflatten_last(matmul(x, params["wv"], kernels), n_kv, head_dim)
     if qk_norm:
         q = rms_norm(q, params["q_norm"], norm_eps)
         k = rms_norm(k, params["k_norm"], norm_eps)
@@ -152,13 +173,16 @@ def attention_block(params, x, *, n_heads, n_kv, head_dim, positions,
                     q_block=512, kernels=True):
     q, k, v = _qkv(params, x, n_heads, n_kv, head_dim, positions, qk_norm,
                    rope_theta, norm_eps, kernels)
-    if kernels:
-        # the kernel's layout is the TPU wrapper's: (B, H, S, d)
-        out = flash_attention(q.transpose(1, 2).contiguous(),
-                              k.transpose(1, 2).contiguous(),
-                              v.transpose(1, 2).contiguous()).transpose(1, 2)
-    else:
-        out = causal_attention(q, k, v, q_block=q_block)
+
+    def attend(q, k, v):
+        if kernels:
+            # the kernel's layout is the TPU wrapper's: (B, H, S, d)
+            return flash_attention(q.transpose(1, 2).contiguous(),
+                                   k.transpose(1, 2).contiguous(),
+                                   v.transpose(1, 2).contiguous()).transpose(1, 2)
+        return causal_attention(q, k, v, q_block=q_block)
+
+    out = sites.attention(attend, q, k, v) if isinstance(q, DTensor) else attend(q, k, v)
     B, S = out.shape[:2]
     return matmul(out.reshape(B, S, n_heads * head_dim), params["wo"], kernels)
 
@@ -180,14 +204,21 @@ def attention_decode(params, x, cache_k, cache_v, cache_len: int, *, n_heads,
     start = min(max(int(cache_len), 0), S_max - S)
     cache_k[:, start:start + S] = k.to(cache_k.dtype)
     cache_v[:, start:start + S] = v.to(cache_v.dtype)
-    kk = _repeat_kv(cache_k, n_heads)
-    vv = _repeat_kv(cache_v, n_heads)
     scale = 1.0 / math.sqrt(head_dim)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * scale
-    mask = torch.arange(S_max, device=x.device) <= cache_len   # current token included
-    logits = torch.where(mask, logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, vv.float()).to(x.dtype)
+
+    def attend(q, cache_k, cache_v, reduce=None):
+        # reduce: the sum of the logits' partial sums over head-width shards
+        kk = _repeat_kv(cache_k, q.shape[2])
+        vv = _repeat_kv(cache_v, q.shape[2])
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float())
+        logits = (logits if reduce is None else reduce(logits)) * scale
+        mask = torch.arange(S_max, device=q.device) <= cache_len   # current token included
+        logits = torch.where(mask, logits, NEG_INF)
+        p = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, vv.float()).to(x.dtype)
+
+    out = (sites.decode_attention(attend, q, cache_k, cache_v) if isinstance(q, DTensor)
+           else attend(q, cache_k, cache_v))
     out = matmul(out.reshape(B, S, n_heads * head_dim), params["wo"], kernels)
     return out, cache_k, cache_v
 
@@ -205,6 +236,9 @@ def init_mlp(gen, d_model, d_ff, dtype, device) -> dict:
     }
 
 
+MLP_AXES = {"w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"), "w_down": ("ffn", "embed")}
+
+
 def mlp_block(params, x, kernels=True):
     h = F.silu(matmul(x, params["w_gate"], kernels)) * matmul(x, params["w_up"], kernels)
     return matmul(h, params["w_down"], kernels)
@@ -218,7 +252,14 @@ def init_embedding(gen, vocab, d_model, dtype, device) -> torch.Tensor:
     return _init(gen, (vocab, d_model), 1.0, dtype, device)
 
 
+EMBED_AXES = ("vocab", "embed")
+
+
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; a DTensor table through its call site
+    (``distributed.sites.embedding``)."""
+    if isinstance(table, DTensor):
+        return sites.embedding(table, tokens)
     return table[tokens]
 
 
@@ -227,6 +268,10 @@ def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean over tokens of logits (..., V) against labels (...); DTensors
+    through their call site (``distributed.sites.cross_entropy``)."""
+    if isinstance(logits, DTensor):
+        return sites.cross_entropy(cross_entropy, logits, labels)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]

@@ -23,6 +23,15 @@ of 8 is held with zero columns up to a multiple of 64 (``pad_head``), so its
 rows are a multiple of 16 bytes, as the matmul kernel and TMA need; every
 logits tensor is cut back to the true width before it is returned or used.
 
+Activations are annotated with logical axes at the reference's seven sites
+(``distributed.sharding.constrain``): a no-op without sharding rules, a
+redistribution of a DTensor under them.  ``param_axes`` and
+``decode_cache_axes`` give the logical axes of ``init_params``' and
+``init_decode_cache``'s trees; the port holds layers as a list of per-layer
+dicts where the reference stacks them, so its per-layer axes are the
+reference's without the leading ``"layers"`` name (which every layout maps to
+no mesh dimension).
+
 Entry points:
   init_params(cfg, generator, device)            -> params
   loss_fn(params, batch, cfg)                    -> (scalar loss, metrics)
@@ -38,14 +47,18 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
+from ..distributed import sites
+from ..distributed.sharding import constrain
 from ..tree import tree_leaves
 from .layers import (
-    _init, attention_block, attention_decode, cross_entropy, embed,
-    init_attention, init_embedding, init_mlp, init_rms, matmul, mlp_block,
-    rms_norm,
+    EMBED_AXES, MLP_AXES, RMS_AXES, _init, attention_axes, attention_block,
+    attention_decode, cross_entropy, embed, init_attention, init_embedding, init_mlp,
+    init_rms, matmul, mlp_block, rms_norm,
 )
-from .mamba2 import CONV_K, init_mamba2, mamba2_block, mamba2_decode
-from .moe import init_moe, moe_block
+from .mamba2 import CONV_K, MAMBA2_AXES, init_mamba2, mamba2_block, mamba2_decode
+from .moe import MOE_AXES, init_moe, moe_block
+
+ACT = ("act_batch", "act_seq", "act_embed")
 
 ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 
@@ -130,6 +143,41 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
     return params
 
 
+def _block_axes(cfg: ArchConfig) -> dict:
+    if cfg.family in ("ssm", "hybrid"):
+        return {"mixer": dict(MAMBA2_AXES), "norm": RMS_AXES}
+    axes = {"attn": attention_axes(cfg.qk_norm), "norm1": RMS_AXES, "norm2": RMS_AXES}
+    if cfg.family == "moe":
+        axes["moe"] = dict(MOE_AXES)
+    else:
+        axes["mlp"] = dict(MLP_AXES)
+    return axes
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of ``init_params(cfg)``'s tree (the reference's
+    ``init_params`` axes, per layer)."""
+    axes = {
+        "embed": (None, *EMBED_AXES) if cfg.family == "audio" else EMBED_AXES,
+        "lm_head": ("embed", "vocab"),
+        "layers": [_block_axes(cfg) for _ in range(cfg.n_layers)],
+        "final_norm": RMS_AXES,
+    }
+    if cfg.family == "hybrid":
+        axes["shared_attn"] = {"attn": attention_axes(cfg.qk_norm), "mlp": dict(MLP_AXES),
+                               "norm1": RMS_AXES, "norm2": RMS_AXES}
+    return axes
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """Meta tensors shaped as ``init_params(cfg)``'s, the head at its true
+    width (``head_width``), not the width it is held at: shardings are
+    computed from these, so the padding never changes a spec."""
+    params = init_params(cfg, torch.Generator(), "meta")
+    params["lm_head"] = params["lm_head"][:, :head_width(cfg)]
+    return params
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -149,9 +197,9 @@ def _dense_block(cfg: ArchConfig, p, x, positions, kernels):
                         qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
                         norm_eps=cfg.norm_eps, q_block=cfg.q_block,
                         kernels=kernels)
-    x = x + h
+    x = constrain(x + h, ACT)
     h, aux = _ffn(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps), kernels, cfg.moe_groups)
-    return x + h, aux
+    return constrain(x + h, ACT), aux
 
 
 def _ssm_block(cfg: ArchConfig, p, x, kernels):
@@ -159,7 +207,7 @@ def _ssm_block(cfg: ArchConfig, p, x, kernels):
     h = mamba2_block(p["mixer"], h, d_state=cfg.ssm_state,
                      headdim=cfg.ssm_headdim, expand=cfg.ssm_expand,
                      chunk=cfg.ssm_chunk, norm_eps=cfg.norm_eps, kernels=kernels)
-    return x + h
+    return constrain(x + h, ACT)
 
 
 def _shared_block(cfg: ArchConfig, p, x, positions, kernels):
@@ -171,7 +219,7 @@ def _shared_block(cfg: ArchConfig, p, x, positions, kernels):
                         q_block=cfg.q_block, kernels=kernels)
     x = x + h
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp_block(p["mlp"], h, kernels)
+    return constrain(x + mlp_block(p["mlp"], h, kernels), ACT)
 
 
 def _remat(cfg: ArchConfig, block, *args):
@@ -225,7 +273,7 @@ def embed_inputs(params, cfg: ArchConfig, batch):
             x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    return x, positions
+    return constrain(x, ACT), positions
 
 
 def logits_fn(params, batch, cfg: ArchConfig, kernels: bool = True):
@@ -235,7 +283,9 @@ def logits_fn(params, batch, cfg: ArchConfig, kernels: bool = True):
     h, aux = forward(params, cfg, x, positions, kernels)
     logits = _head(cfg, params, h, kernels)
     if cfg.family == "audio":
-        logits = logits.reshape(*h.shape[:2], cfg.n_codebooks, cfg.vocab)
+        logits = sites.unflatten_last(logits, cfg.n_codebooks, cfg.vocab)
+    else:
+        logits = constrain(logits, ("act_batch", "act_seq", "act_vocab"))
     return logits, aux
 
 
@@ -290,6 +340,19 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") 
     return cache
 
 
+def decode_cache_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of ``init_decode_cache(cfg, ...)``'s tree (the
+    reference's, whose caches are stacked as the port's are)."""
+    if cfg.family in ATTN_FAMILIES:
+        kv = ("layers", "act_batch", None, "act_kv", "act_hd")
+        return {"k": kv, "v": kv}
+    axes = {"conv": ("layers", "act_batch", None, "act_ffn"),
+            "ssm": ("layers", "act_batch", None, None, None)}
+    if cfg.family == "hybrid":
+        axes["k"] = axes["v"] = (None, "act_batch", None, "act_kv", "act_hd")
+    return axes
+
+
 def _attention_decode_block(cfg: ArchConfig, p, x, cache_k, cache_v, cache_len, kernels,
                             qk_norm):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -315,6 +378,7 @@ def decode_step(params, cache, tokens, cache_len: int, cfg: ArchConfig,
         x = _embed_codes(params["embed"], tokens)
     else:
         x = embed(params["embed"], tokens)
+    x = constrain(x, ("act_batch", None, "act_embed"))
     g = 0  # the hybrid's next shared-block call site
     for i, p in enumerate(params["layers"]):
         if cfg.family in ATTN_FAMILIES:
@@ -338,5 +402,5 @@ def decode_step(params, cache, tokens, cache_len: int, cfg: ArchConfig,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _head(cfg, params, x, kernels)
     if cfg.family == "audio":
-        logits = logits.reshape(x.shape[0], 1, cfg.n_codebooks, cfg.vocab)
+        logits = sites.unflatten_last(logits, cfg.n_codebooks, cfg.vocab)
     return logits, cache

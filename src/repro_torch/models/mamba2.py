@@ -20,7 +20,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from ..distributed import sites
 from ..kernels.ssd_scan.ops import ssd_scan
 from ..kernels.ssd_scan.ref import chunk_carry, decay
 from .layers import _init, matmul, rms_norm
@@ -45,6 +47,10 @@ def init_mamba2(gen, d_model, d_state, headdim, expand, dtype, device) -> dict:
     }
 
 
+MAMBA2_AXES = {"in_proj": ("embed", "ffn"), "conv": (None, "ffn"), "A_log": (None,),
+               "dt_bias": (None,), "D": (None,), "norm": ("ffn",), "out_proj": ("ffn", "embed")}
+
+
 def _split_proj(zxbcdt, d_inner, d_state):
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner:2 * d_inner + 2 * d_state]
@@ -67,6 +73,14 @@ def _causal_conv(xBC, conv_w, state=None):
     new_state = xBC[:, -(CONV_K - 1):]
     out = sum(xBC[:, k:k + S] * conv_w[k][None, None] for k in range(CONV_K))
     return F.silu(out), new_state
+
+
+def causal_conv(xBC, conv_w, state=None):
+    """``_causal_conv``; DTensors through their call site
+    (``distributed.sites.conv``)."""
+    if isinstance(xBC, DTensor):
+        return sites.conv(_causal_conv, xBC, conv_w, state)
+    return _causal_conv(xBC, conv_w, state)
 
 
 def _causal_mask(Q: int, device) -> torch.Tensor:
@@ -141,16 +155,17 @@ def mamba2_block(params, x, *, d_state, headdim, expand, chunk, norm_eps=1e-5,
     z, xBC, dt = _split_proj(zxbcdt, d_inner, d_state)
     dt = F.softplus(dt.float() + params["dt_bias"])
     conv_state = None if initial is None else initial.get("conv")
-    xBC, new_conv = _causal_conv(xBC, params["conv"], conv_state)
-    xs = xBC[..., :d_inner].reshape(B, S, nheads, headdim)
+    xBC, new_conv = causal_conv(xBC, params["conv"], conv_state)
+    xs = sites.unflatten_last(xBC[..., :d_inner], nheads, headdim)
     Bm = xBC[..., d_inner:d_inner + d_state]
     Cm = xBC[..., d_inner + d_state:]
     A = -torch.exp(params["A_log"])
     ssm_state = None if initial is None else initial.get("ssm")
     # the kernel reads its inputs in place, so they are made contiguous
     scan = ssd_scan if kernels else ssd_chunked
-    y, final = scan(xs.float().contiguous(), dt.contiguous(), A,
-                    Bm.float().contiguous(), Cm.float().contiguous(), chunk)
+    args = (xs.float().contiguous(), dt.contiguous(), A,
+            Bm.float().contiguous(), Cm.float().contiguous(), chunk)
+    y, final = sites.ssd(scan, *args) if isinstance(xs, DTensor) else scan(*args)
     if ssm_state is not None:
         # carry-in state contribution (decode prefill continuation): add
         # C_t . (decay from t=0) h_in
@@ -179,8 +194,8 @@ def mamba2_decode(params, x, cache, *, d_state, headdim, expand, norm_eps=1e-5,
     zxbcdt = matmul(x, params["in_proj"], kernels)
     z, xBC, dt = _split_proj(zxbcdt, d_inner, d_state)
     dt = F.softplus(dt.float() + params["dt_bias"])[:, 0]  # (B,H)
-    xBC, new_conv = _causal_conv(xBC, params["conv"], cache["conv"])
-    xs = xBC[:, 0, :d_inner].reshape(B, nheads, headdim)
+    xBC, new_conv = causal_conv(xBC, params["conv"], cache["conv"])
+    xs = sites.unflatten_last(xBC[:, 0, :d_inner], nheads, headdim)
     Bm = xBC[:, 0, d_inner:d_inner + d_state]
     Cm = xBC[:, 0, d_inner + d_state:]
     A = -torch.exp(params["A_log"])

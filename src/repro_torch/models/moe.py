@@ -26,7 +26,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from ..distributed import sites
 from .layers import _init
 
 CHUNK = 8192          # capacity rows a chunk of the expert products takes
@@ -40,6 +42,10 @@ def init_moe(gen, d_model, d_ff, n_experts, dtype, device) -> dict:
         "w_up": _init(gen, (n_experts, d_model, d_ff), s, dtype, device),
         "w_down": _init(gen, (n_experts, d_ff, d_model), 1.0 / math.sqrt(d_ff), dtype, device),
     }
+
+
+MOE_AXES = {"router": ("embed", None), "w_gate": ("experts", "embed", "ffn"),
+            "w_up": ("experts", "embed", "ffn"), "w_down": ("experts", "ffn", "embed")}
 
 
 def capacity(n_assign: int, n_experts: int, capacity_factor: float) -> int:
@@ -74,13 +80,26 @@ def moe_block(params, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1
 
     ``groups > 1`` dispatches each of ``groups`` equal runs of the B*S tokens
     on its own (its own capacity), as the reference's ``vmap`` does, and
-    averages their aux losses."""
+    averages their aux losses.  DTensors go through their call site
+    (``distributed.sites.moe``: expert parallelism)."""
+    if isinstance(x, DTensor):
+        return sites.moe(lambda p, xl, g, experts: dispatch(p, xl, top_k, capacity_factor, g,
+                                                            experts), params, x, groups)
+    return dispatch(params, x, top_k, capacity_factor, groups)
+
+
+def dispatch(params, x, top_k: int, capacity_factor: float, groups: int,
+             experts: tuple[int, int] | None = None):
+    """``moe_block`` on local tensors.  ``experts`` (e0, n): the expert
+    weights hold experts e0..e0+n-1 of the router's E, and the output sums
+    only their products (the rest is zero); the routing, capacity and aux
+    loss are the whole layer's."""
     B, S, D = x.shape
     T = B * S
     if groups > 1:
         if T % groups:
             raise ValueError(f"moe_block: {T} tokens do not split into {groups} groups")
-        outs = [moe_block(params, g[None], top_k=top_k, capacity_factor=capacity_factor)
+        outs = [dispatch(params, g[None], top_k, capacity_factor, 1, experts)
                 for g in x.reshape(groups, T // groups, D)]
         y = torch.cat([o for o, _ in outs]).reshape(B, S, D)
         return y, torch.stack([a for _, a in outs]).mean()
@@ -104,6 +123,14 @@ def moe_block(params, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1
     slot = starts[:, None] + torch.arange(C, device=dev)[None, :]              # (E, C)
     valid = torch.arange(C, device=dev)[None, :] < counts[:, None]
     slot_tok = sorted_tok[slot.clamp(0, N - 1)]                                # (E, C)
+    pos = torch.arange(N, device=dev) - starts[sorted_e]
+    kept = pos < C
+    row = sorted_e
+    if experts is not None:       # this rank's experts only
+        e0, n = experts
+        slot_tok, valid = slot_tok[e0:e0 + n], valid[e0:e0 + n]
+        kept = kept & (sorted_e >= e0) & (sorted_e < e0 + n)
+        row = (sorted_e - e0).clamp(0, n - 1)
 
     # the expert products in capacity chunks of at most CHUNK slots, which
     # bounds the (E, chunk, d_ff) hidden working set whatever C is
@@ -111,9 +138,7 @@ def moe_block(params, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1
                                * valid[:, lo:lo + CHUNK, None].to(x.dtype))
                     for lo in range(0, C, CHUNK)], dim=1)                      # (E, C, D)
 
-    pos = torch.arange(N, device=dev) - starts[sorted_e]
-    kept = pos < C
-    ye_n = ye[sorted_e, pos.clamp(0, C - 1)] * kept[:, None].to(x.dtype)       # (N, D)
+    ye_n = ye[row, pos.clamp(0, C - 1)] * kept[:, None].to(x.dtype)            # (N, D)
     y = (ye_n[inverse_permutation(order)].reshape(T, top_k, D)
          * gate_vals[..., None].to(x.dtype)).sum(dim=1)
 

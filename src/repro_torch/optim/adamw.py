@@ -56,6 +56,15 @@ def init_opt_state(params) -> dict:
     }
 
 
+def opt_state_axes(param_axes):
+    """Logical axes for the optimizer state (mirrors params)."""
+    return {
+        "mu": param_axes,
+        "nu": param_axes,
+        "step": (),
+    }
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
     return torch.sqrt(torch.stack([torch.sum(torch.square(x.float()))

@@ -33,8 +33,7 @@ def _quantize(x: torch.Tensor, bits: int) -> torch.Tensor:
 def compress_gradients(grads, err_state, cfg: CompressionConfig):
     """Returns (compressed_grads, new_err_state, stats)."""
     if err_state is None:
-        err_state = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
-                                                   device=g.device), grads)
+        err_state = tree_map(lambda g: torch.zeros_like(g, dtype=torch.float32), grads)
 
     def one(g, e):
         g32 = g.float()

@@ -10,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.configs import get_smoke, smoke_shape  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.ltrf_matmul import ltrf_matmul, matmul_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_ref, ssd_scan  # noqa: E402
@@ -649,3 +649,36 @@ def test_traced_workloads_batch_on_the_card(dev, tmp_path):
             for d in ("BL", "RFC", "SHRF", "LTRF", "LTRF_conf", "LTRF_plus", "Ideal")]
     for cfg, r in zip(cfgs, run_batch([(w, c) for c in cfgs], fallback=False)):
         assert r == simulate(w, cfg), cfg.design
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "zamba2-1.2b", "granite-moe-3b-a800m"])
+def test_one_rank_nccl_mesh_step_is_the_unsharded_step(dev, arch):
+    """A smoke train step on a one-rank NCCL mesh (``make_host_mesh``),
+    through the kernels, gives the bits of the step without rules (the
+    group is started here and ended)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data import batch_for_step
+    from repro_torch.distributed import default_rules, reshard_state
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import train_step as TT
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_smoke(arch)
+    state = TT.make_train_state(cfg, torch.Generator(dev).manual_seed(0), dev)
+    batch = batch_for_step(cfg, dataclasses.replace(smoke_shape(), global_batch=4), 0, 1)
+    plain, plain_m = TT.build_train_step(cfg)(tree_map(torch.clone, state), batch)
+    mesh = make_host_mesh(device=dev)
+    try:
+        placed, rules = reshard_state(state, TT.train_state_axes(cfg), mesh,
+                                      shapes_tree=TT.train_state_shapes(cfg))
+        before = ltrf_matmul.launches
+        got, m = TT.build_train_step(cfg, rules=rules)(placed, batch)
+        torch.cuda.synchronize()
+        assert ltrf_matmul.launches > before         # through the kernel
+        assert all(isinstance(t, DTensor) for t in tree_leaves(got))
+        assert all(torch.equal(a, b.to_local()) for a, b in zip(tree_leaves(plain),
+                                                                tree_leaves(got)))
+        assert {k: float(v) for k, v in m.items()} == {k: float(v) for k, v in plain_m.items()}
+    finally:
+        dist.destroy_process_group()
