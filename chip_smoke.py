@@ -158,7 +158,9 @@ exits non-zero; no phase's error is caught):
     started after the build and read here: each cell's seconds, per-device
     argument and peak GiB, per-rank FLOPs and collectives by kind, and the
     tracked sweep's card wall beside its wall before the dry-run ran beside
-    the card.
+    the card; granite-moe's two cells printed beside their counts when the
+    MoE site gathered the experts' d_ff split, and failed if either's FLOPs
+    a rank is above an eighth of those.
 23. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
     7-17 and 22, each counted from 0) in all and per route, error, times and
     bounds per kernel, and each kernel's training launches and backward.
@@ -2423,6 +2425,12 @@ DRYRUN_SHAPES = ("train_4k", "decode_32k")
 # the tracked sweep's card wall on an H100 80GB HBM3 at 700 W before the
 # dry-run ran beside it (PERF.md §5): its cost shows against this
 TRACKED_WALL_BEFORE_S = 392.4
+# granite-moe's dry-run cells on 16x16 when the MoE site still gathered the
+# experts' d_ff split (on the card's host, torch 2.11; PERF.md §6): FLOPs a
+# rank and all-gather GiB.  Keeping the split cuts the FLOPs ~10x; a cell
+# above an eighth of these has lost it.
+MOE_GATHERED = {"train_4k": {"flops_per_rank": 6.60e15, "all_gather_gib": 510.8},
+                "decode_32k": {"flops_per_rank": 1.98e11}}
 
 
 def dryrun_start(out_dir: Path) -> list:
@@ -2451,10 +2459,26 @@ def dryrun_start(out_dir: Path) -> list:
     return procs
 
 
-def dryrun_read(procs, out_dir: Path, started: float) -> dict:
+def all_gathers_of(by_source: dict, top: int = 4) -> dict:
+    """A dry-run cell's all-gather GiB of weights and of activations, and
+    its ``top`` largest sources."""
+    out: dict = {"weight": 0.0, "activation": 0.0}
+    rows = []
+    for key, v in by_source.items():
+        kind, of, where = key.split(" ", 2)
+        if kind == "all-gather":
+            out[of] += v["bytes"] / 2 ** 30
+            rows.append((v["bytes"] / 2 ** 30, f"{of} {where}"))
+    out["top"] = {k: gib for gib, k in sorted(rows, reverse=True)[:top]}
+    return out
+
+
+def dryrun_read(procs, out_dir: Path, started: float, card: str) -> dict:
     """(d)'s cells, once their processes end: each cell's record, in short,
     and when the last cell was written (seconds after ``started``, a
-    ``time.time()``)."""
+    ``time.time()``); granite-moe's cells printed beside ``MOE_GATHERED``
+    with ``card`` (``nvidia-smi``'s name and power limit), and held to an
+    eighth of its FLOPs."""
     for i, proc in enumerate(procs):
         check(proc.wait() == 0, f"mesh: the dry-run exited {proc.returncode}: "
                                 f"{(out_dir / f'dryrun_{i}.log').read_text()[-2000:]}")
@@ -2476,8 +2500,27 @@ def dryrun_read(procs, out_dir: Path, started: float) -> dict:
                     "flops_per_rank": rec["cost"]["flops"],
                     "collectives": {k: v for k, v in coll.items()
                                     if isinstance(v, dict) and v["count"]},
+                    "all_gather_gib_of": all_gathers_of(rec["collectives_by_source"]),
                     "cuda_initialized": rec["cuda_initialized"]}
-    return {"cells": cells, "done_after_s": done}
+    moe = {}
+    for shp, gathered in MOE_GATHERED.items():
+        cell = cells[f"{MOE_ARCH}/{shp}/pod16x16"]
+        coll = cell["collectives"]
+        moe[shp] = {"flops_per_rank": cell["flops_per_rank"],
+                    "all_gather_gib": coll.get("all-gather", {"bytes": 0})["bytes"] / 2 ** 30,
+                    "collective_gib": sum(v["bytes"] for v in coll.values()) / 2 ** 30,
+                    "gathered_split": gathered}
+        print(f"mesh dry-run {MOE_ARCH} {shp} 16x16 ({card}; counts, no device): "
+              f"FLOPs a rank {moe[shp]['flops_per_rank']:.4g} "
+              f"(split gathered: {gathered['flops_per_rank']:.3g}), "
+              f"all-gather {moe[shp]['all_gather_gib']:.2f} GiB"
+              + (f" ({gathered['all_gather_gib']})" if "all_gather_gib" in gathered else "")
+              + f", collectives {moe[shp]['collective_gib']:.2f} GiB", flush=True)
+        check(moe[shp]["flops_per_rank"] <= gathered["flops_per_rank"] / 8,
+              f"mesh: {MOE_ARCH} {shp} runs {moe[shp]['flops_per_rank']:.4g} FLOPs a rank, "
+              f"above an eighth of {gathered['flops_per_rank']:.3g}: the experts' d_ff "
+              f"split is gathered")
+    return {"cells": cells, "done_after_s": done, "moe_ffn_split": moe}
 
 
 def counted(fn, *a):
@@ -2580,12 +2623,13 @@ def mesh_pipeline(cfg, dev, seed) -> tuple:
     return out, counts, routes
 
 
-def phase_mesh(cfgs, dev, seed, dryrun, tracked_wall_s) -> dict:
+def phase_mesh(cfgs, dev, seed, dryrun, tracked_wall_s, card) -> dict:
     """The mesh layer on the card: (a)-(c) on a one-rank NCCL mesh
     (``make_host_mesh``) with ``default_rules``, every kernel launch on its
     route; (d) the dry-run's cells, read from their host processes, and the
     tracked sweep's card wall (``tracked_wall_s``) beside its wall before
-    the dry-run ran beside the card."""
+    the dry-run ran beside the card; ``card``: ``nvidia-smi``'s name and
+    power limit."""
     own = not dist.is_initialized()
     mesh = make_host_mesh(device=dev)
     rules = default_rules(mesh)
@@ -2609,7 +2653,7 @@ def phase_mesh(cfgs, dev, seed, dryrun, tracked_wall_s) -> dict:
     for name, by_route in out["launches_by_route"].items():
         check(by_route["wgmma"] == out["launches"][name],
               f"mesh {name} routes {by_route}: every launch on wgmma")
-    out["dryrun"] = dryrun_read(*dryrun)
+    out["dryrun"] = dryrun_read(*dryrun, card)
     out["tracked_sweep_wall_s"] = {"this_run": tracked_wall_s,
                                    "before_the_dryrun": TRACKED_WALL_BEFORE_S}
     return out
@@ -2766,7 +2810,8 @@ def main() -> int:
         run("sim_batch", phase_sim_batch, dev, args.seed)
         run("traced_sweep", phase_traced_sweep, dev, args.seed)
         run("mesh", phase_mesh, cfgs, dev, args.seed, dryrun,
-            results["sweep_service"]["tracked"]["service_wall_s"])
+            results["sweep_service"]["tracked"]["service_wall_s"],
+            results["device"]["nvidia_smi"])
         paths["mesh"] = results["mesh"]["launches"]
         routes["mesh"] = results["mesh"]["launches_by_route"]
         line = kernels_line(cfgs, results["kernel_checks"], paths, routes,

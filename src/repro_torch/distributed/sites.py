@@ -26,12 +26,16 @@ unsharded path's bits.
   vocabulary split over ranks takes the vocab-parallel form (max, sum of
   exponentials and the label's logit all-reduced over the vocabulary's ranks,
   as Megatron-LM does).  The loss is ``Partial`` over the batch's ranks.
-- ``moe``: expert parallelism.  Experts sharded over a mesh dimension stay
-  sharded there, every rank of it routes all tokens and runs its own experts,
-  and the output is ``Partial`` over it.  Tokens stay batch-sharded only where
-  whole dispatch groups lie on each rank (the capacity is per group), else
-  they are gathered, so every token meets the experts and capacity the
-  unsharded dispatch gives it.
+- ``moe``: expert and expert-tensor parallelism.  Experts sharded over a
+  mesh dimension stay sharded there, every rank of it routes all tokens and
+  runs its own experts, and the output is ``Partial`` over it.  The experts'
+  ``d_ff`` split over a mesh dimension stays too (``w_gate`` and ``w_up``
+  column-parallel, ``w_down`` row-parallel, as ``matmul`` keeps a dense
+  FFN's): every rank of it routes all tokens alike, runs its ``d_ff`` slice
+  of every expert, and the output is ``Partial`` over it.  Tokens stay
+  batch-sharded only where whole dispatch groups lie on each rank (the
+  capacity is per group), else they are gathered, so every token meets the
+  experts and capacity the unsharded dispatch gives it.
 """
 from __future__ import annotations
 
@@ -384,27 +388,36 @@ def moe(local_fn, params, x, groups: int):
     """``local_fn(params, x, groups, expert_range)`` -> (y, aux) for x
     (B, S, D); ``expert_range`` (e0, n) names the experts a rank holds."""
     mesh = _mesh(x, *params.values())
-    E = params["router"].shape[1]
+    E, d_ff = params["router"].shape[1], params["w_gate"].shape[2]
     px = _placements(x, mesh)
-    pe = _placements(params["w_gate"], mesh)
-    expert_dims = [i for i, p in enumerate(pe) if _shards(p, 0) and E % mesh.size(i) == 0]
-    batch_dims = [i for i, p in enumerate(px) if _shards(p, 0) and i not in expert_dims]
+    pg, pu, pd = (_placements(params[k], mesh) for k in ("w_gate", "w_up", "w_down"))
+    dims = range(mesh.ndim)
+    expert_dims = [i for i in dims if _shards(pg[i], 0) and E % mesh.size(i) == 0]
+    batch_dims = [i for i in dims if _shards(px[i], 0) and i not in expert_dims]
     n_batch = math.prod(mesh.size(i) for i in batch_dims)
     if groups % n_batch:
         batch_dims, n_batch = [], 1
-    dims = range(mesh.ndim)
+    # the d_ff split stays where the tokens are whole (a weight sharded over
+    # the batch's ranks is gathered there, as ``matmul`` gathers it)
+    ffn_dims = [i for i in dims if i not in expert_dims and i not in batch_dims
+                and mesh.size(i) > 1 and d_ff % mesh.size(i) == 0
+                and _shards(pg[i], 2) and _shards(pu[i], 2) and _shards(pd[i], 1)]
     in_x = tuple(px[i] if i in batch_dims else R for i in dims)
-    in_e = tuple(Shard(0) if i in expert_dims else R for i in dims)
+    in_up = tuple(Shard(0) if i in expert_dims else Shard(2) if i in ffn_dims else R
+                  for i in dims)
+    in_down = tuple(Shard(0) if i in expert_dims else Shard(1) if i in ffn_dims else R
+                    for i in dims)
     rep = (R,) * mesh.ndim
-    out_y = tuple(Shard(0) if i in batch_dims else P if i in expert_dims else R for i in dims)
+    summed = expert_dims + ffn_dims         # each rank's y a share of the sum
+    out_y = tuple(Shard(0) if i in batch_dims else P if i in summed else R for i in dims)
     # each rank's aux loss, a share of the whole, is Partial wherever the work
     # is split, and so is the gradient of whatever every such rank reads whole
-    split = tuple(P if i in batch_dims or i in expert_dims else R for i in dims)
-    g_x = tuple(P if i in expert_dims else in_x[i] for i in dims)
-    g_e = tuple(P if i in batch_dims else in_e[i] for i in dims)
-    n_split = n_batch * _split_count(mesh, in_e, 0)
-    n_local = E // _split_count(mesh, in_e, 0)
-    expert_range = None if n_local == E else (_shard_offset(mesh, in_e, 0, E), n_local)
+    split = tuple(P if i in batch_dims or i in summed else R for i in dims)
+    g_x = tuple(P if i in summed else in_x[i] for i in dims)
+    g_up, g_down = (tuple(P if i in batch_dims else w[i] for i in dims) for w in (in_up, in_down))
+    n_split = n_batch * _split_count(mesh, in_up, 0) * math.prod(mesh.size(i) for i in ffn_dims)
+    n_local = E // _split_count(mesh, in_up, 0)
+    expert_range = None if n_local == E else (_shard_offset(mesh, in_up, 0, E), n_local)
 
     def local(xl, *weights):
         y, aux = local_fn(dict(zip(MOE_WEIGHTS, weights)), xl, groups // n_batch,
@@ -412,5 +425,5 @@ def moe(local_fn, params, x, groups: int):
         return y, aux / n_split
 
     weights = [params[k] for k in MOE_WEIGHTS]
-    return _run(local, mesh, (x, *weights), (in_x, rep, in_e, in_e, in_e), [out_y, split],
-                (g_x, split, g_e, g_e, g_e))
+    return _run(local, mesh, (x, *weights), (in_x, rep, in_up, in_up, in_down), [out_y, split],
+                (g_x, split, g_up, g_up, g_down))

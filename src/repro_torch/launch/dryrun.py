@@ -18,9 +18,11 @@ Per (arch x shape) cell this:
      reference's ``n_micro`` (beyond ``TRACED_MICRO``, extrapolated from
      traces at those counts), decode ``build_decode_step``;
   4. records per-rank FLOPs of the local work, the collectives each rank
-     issues (``CommTracker``), per-device memory (the arguments' bytes from
-     their local shard shapes, exactly, and the peak of live local tensors),
-     the seconds the step took to run, and the parameter counts;
+     runs (``CommTracker``: by kind, and by what they move, a weight or an
+     activation, and the line of the port that moves it), per-device memory
+     (the arguments' bytes from their local shard shapes, exactly, and the
+     peak of live local tensors), the seconds the step took to run, and the
+     parameter counts;
   5. writes JSON to experiments/dryrun_torch/<arch>_<shape>_<mesh>.json.
 
 Everything runs on the CPU; CUDA is never started.  The roofline constants
@@ -49,7 +51,8 @@ from ..runtime.train_step import (
 )
 from ..tree import tree_leaves, tree_map
 from .hlo_stats import (
-    CommTracker, WorkTracker, _cost_analysis, _eval_shape_with_axes, _mem_analysis, comm_stats,
+    CommTracker, WorkTracker, _cost_analysis, _eval_shape_with_axes, _mem_analysis, comm_sources,
+    comm_stats,
 )
 from .mesh import make_production_mesh
 
@@ -163,10 +166,14 @@ def _extrapolated(cfg, shape, mesh, n_micro: int) -> dict:
     coll = {k: ({f: at_n(v[f], rb["collectives"][k][f]) for f in v} if isinstance(v, dict)
                 else at_n(v, rb["collectives"][k]))
             for k, v in ra["collectives"].items()}
+    sa, sb = ra["collectives_by_source"], rb["collectives_by_source"]
+    none = {"count": 0, "bytes": 0}
+    by_source = {k: {f: at_n(sa.get(k, none)[f], sb.get(k, none)[f]) for f in none}
+                 for k in sorted(sa.keys() | sb.keys())}
     return {"traced_micro": list(TRACED_MICRO), "trace_s": ra["trace_s"] + rb["trace_s"],
             "setup_s": ra["setup_s"] + rb["setup_s"], "memory": rb["memory"],
             "cost": {"flops": at_n(ra["cost"]["flops"], rb["cost"]["flops"])},
-            "collectives": coll}
+            "collectives": coll, "collectives_by_source": by_source}
 
 
 def _trace(cfg, shape, mesh, n_micro: int | None) -> dict:
@@ -211,13 +218,15 @@ def _trace(cfg, shape, mesh, n_micro: int | None) -> dict:
     work = WorkTracker()
     work.track(tree_leaves(list(trees)))
     comms = CommTracker()
+    comms.weights(tree_leaves(params))
     t1 = time.perf_counter()
     with comms, work:
         run()
     mem = _mem_analysis(args_bytes, work)
     mem["head_padding_bytes"] = held_bytes - args_bytes
     return {"setup_s": t1 - t0, "trace_s": time.perf_counter() - t1, "memory": mem,
-            "cost": _cost_analysis(work), "collectives": comm_stats(comms)}
+            "cost": _cost_analysis(work), "collectives": comm_stats(comms),
+            "collectives_by_source": comm_sources(comms)}
 
 
 def main() -> None:

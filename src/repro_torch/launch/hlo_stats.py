@@ -8,7 +8,9 @@ stands in for XLA's analyses over a step run on fake DTensors:
 
 - ``CommTracker``: torch's ``CommDebugMode`` that also sums each
   collective's output bytes (the local tensors one rank receives);
-  ``comm_stats`` reads it in ``collective_stats``'s schema.
+  ``comm_stats`` reads it in ``collective_stats``'s schema, and
+  ``comm_sources`` by what was moved (a weight, or an activation) and the
+  line of the port's code that moved it.
 - ``WorkTracker``: a dispatch mode below DTensor that counts the FLOPs of
   the ops each rank runs on its local shards (torch's ``FlopCounterMode``
   counts a DTensor op at its global shapes) and the bytes of the local
@@ -18,7 +20,9 @@ stands in for XLA's analyses over a step run on fake DTensors:
 """
 from __future__ import annotations
 
+import os
 import re
+import sys
 import weakref
 from collections import defaultdict
 
@@ -93,19 +97,80 @@ def _nbytes(out) -> int:
 
 class CommTracker(CommDebugMode):
     """``CommDebugMode`` that also sums the bytes of each collective's
-    outputs, by torch op name (``comm_bytes``)."""
+    outputs, by torch op name (``comm_bytes``), and by what it moved and
+    where (``source_bytes``, ``source_counts``).
+
+    What it moved: a weight where its inputs are local tensors given to
+    ``weights`` or what collectives made of them alone (a weight gathered
+    over one mesh dimension, then another), else an activation (gradients
+    included).
+    Where: the innermost frame of the port's model code
+    (``repro_torch/models/``) that led to the collective, else the innermost
+    of the port's other code (a backward runs from ``torch.autograd.grad``'s
+    caller)."""
 
     def __init__(self):
         super().__init__()
         self.comm_bytes: dict[str, int] = defaultdict(int)
+        self.source_bytes: dict[tuple, int] = defaultdict(int)
+        self.source_counts: dict[tuple, int] = defaultdict(int)
+        self._weights: set[int] = set()
+
+    def weights(self, tensors) -> None:
+        """Count ``tensors`` (DTensors by their local tensors) as weights."""
+        for t in tensors:
+            if isinstance(t, DTensor):
+                t = t.to_local()
+            if isinstance(t, torch.Tensor):
+                self._mark(t)
+
+    def _mark(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        if id(st) not in self._weights:
+            self._weights.add(id(st))
+            weakref.finalize(st, self._weights.discard, id(st))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = super().__torch_dispatch__(func, types, args, kwargs)
-        if out is not NotImplemented and not isinstance(func, torch._ops.HigherOrderOperator):
-            name = func._overloadpacket.__name__
-            if name in _KIND or any(p.__name__ == name for p in self.get_comm_counts()):
-                self.comm_bytes[name] += _nbytes(out)
+        if out is NotImplemented or isinstance(func, torch._ops.HigherOrderOperator):
+            return out
+        name = func._overloadpacket.__name__
+        collective = name in _KIND or any(p.__name__ == name for p in self.get_comm_counts())
+        if collective or func.namespace == "_c10d_functional":     # and its wrappers
+            ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+            of_weights = bool(ins) and all(id(t.untyped_storage()) in self._weights
+                                           for t in ins)
+            if of_weights:
+                self.weights(tree_leaves(out))
+        if collective:
+            nbytes = _nbytes(out)
+            self.comm_bytes[name] += nbytes
+            key = (_KIND.get(name, "other"), "weight" if of_weights else "activation",
+                   _source())
+            self.source_bytes[key] += nbytes
+            self.source_counts[key] += 1
         return out
+
+
+_PORT = f"{os.sep}repro_torch{os.sep}"
+_MODELS = f"{_PORT}models{os.sep}"
+
+
+def _source() -> str:
+    """The innermost caller in the port's model code, else in the port
+    outside this module, as "path:line function"."""
+    inner = None
+    f = sys._getframe(2)
+    while f is not None:
+        path = f.f_code.co_filename
+        if _PORT in path and path != __file__:
+            where = (f"{path.rsplit(_PORT, 1)[1].replace(os.sep, '/')}:{f.f_lineno} "
+                     f"{f.f_code.co_name}")
+            if _MODELS in path:
+                return where
+            inner = inner or where
+        f = f.f_back
+    return inner or "outside the port"
 
 
 def comm_stats(mode: CommTracker) -> dict:
@@ -120,6 +185,13 @@ def comm_stats(mode: CommTracker) -> dict:
     stats["total_bytes"] = sum(v["bytes"] for v in stats.values() if isinstance(v, dict))
     stats["total_count"] = sum(v["count"] for v in stats.values() if isinstance(v, dict))
     return stats
+
+
+def comm_sources(mode: CommTracker) -> dict:
+    """``"<kind> <weight|activation> <path:line function>"`` -> count and
+    output bytes, for each collective kind, what it moved and where."""
+    return {" ".join(k): {"count": mode.source_counts[k], "bytes": b}
+            for k, b in sorted(mode.source_bytes.items())}
 
 
 class WorkTracker(TorchDispatchMode):

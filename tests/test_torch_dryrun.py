@@ -3,6 +3,9 @@
 - ``hlo_stats``' HLO-text parsers are the reference's text, and pass the
   reference's cases; ``comm_stats`` maps torch's collectives onto the same
   schema, with each rank's output bytes.
+- ``CommTracker`` tells a weight's collectives (made from the weights alone)
+  from an activation's, and sums each by the line of the port that called
+  it; the sums are the totals, and extrapolate as they do.
 - On a fake (2, 2) mesh with smoke configs, each cell's per-device argument
   bytes equal the sum over the reference's shardings of ``shard_shape``s (the
   port's SSM decode state is fp32 where the reference's is the model dtype,
@@ -12,6 +15,9 @@
   unsharded plain step, and no collective runs.
 - A step of many microbatches extrapolated from two traces equals its
   direct trace.
+- granite-moe with 3 experts on a (2, 2) mesh under ``2d`` (its experts'
+  ``ffn`` split over ``model``): the expert products' FLOPs a rank are half
+  the unsharded step's, exactly.
 - ``python -m repro_torch.launch.dryrun`` on one cell, in a fresh process,
   starts no CUDA; neither does a trace where a card is visible.
 """
@@ -50,6 +56,7 @@ from repro.runtime.train_step import batch_axes_for as jax_batch_axes_for  # noq
 import repro_torch.launch.hlo_stats as hlo_stats  # noqa: E402
 from repro_torch.configs import ARCH_IDS, ShapeConfig, get_smoke, input_specs  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.runtime import train_step as TT  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -136,6 +143,47 @@ def test_comm_stats_counts_each_collective_and_its_output_bytes():
     assert (st["total_count"], st["total_bytes"]) == (3, (48 + 96 + 48) * 4)
 
 
+@pytest.mark.usefixtures("fake_world")
+def test_comm_sources_tell_weights_from_activations():
+    m = mesh((2, 2))
+    w, x = (DTensor.from_local(torch.empty(3, 8, device="meta"), m, [Shard(0), Shard(0)],
+                               run_check=False) for _ in range(2))      # global (12, 8)
+    comms = hlo_stats.CommTracker()
+    comms.weights([w])
+    with comms:
+        w.redistribute(m, [Replicate(), Replicate()])       # a weight's, two hops
+        (w * 2).redistribute(m, [Replicate(), Replicate()])
+        x.redistribute(m, [Replicate(), Replicate()])
+    hops = 6 * 8 * 4 + 12 * 8 * 4
+    assert hlo_stats.comm_sources(comms) == {
+        "all-gather weight outside the port": {"count": 2, "bytes": hops},
+        "all-gather activation outside the port": {"count": 4, "bytes": 2 * hops}}
+
+
+@pytest.mark.usefixtures("fake_world")
+def test_collectives_by_source_sum_to_the_totals_and_extrapolate():
+    """mamba2 smoke on (2, 2): each kind's sources sum to its totals, the
+    FSDP gathers are the weights', the column-split in_proj output is
+    gathered where ``_split_proj`` slices it; 5 microbatches extrapolated
+    from 2 and 3 give the direct trace's sources."""
+    cfg = get_smoke("mamba2-1.3b")
+    m = mesh((2, 2))
+    rec = dryrun._trace_cell(cfg, TRAIN, m, False, "")
+    by_source = rec["collectives_by_source"]
+    for kind, v in rec["collectives"].items():
+        if isinstance(v, dict):
+            rows = [r for k, r in by_source.items() if k.split()[0] == kind]
+            assert (sum(r["count"] for r in rows), sum(r["bytes"] for r in rows)) == \
+                (v["count"], v["bytes"])
+    assert any(k.startswith("all-gather weight models/layers.py") and k.endswith(" matmul")
+               for k in by_source)
+    assert any(k.startswith("all-gather activation models/mamba2.py")
+               and k.endswith(" _split_proj") for k in by_source)
+    shape = ShapeConfig("t", 32, 10, "train")
+    assert dryrun._extrapolated(cfg, shape, m, 5)["collectives_by_source"] == \
+        dryrun._trace(cfg, shape, m, 5)["collectives_by_source"]
+
+
 # ---------------------------------------------------------------------------
 # the dry-run on small meshes
 # ---------------------------------------------------------------------------
@@ -215,6 +263,30 @@ def test_extrapolated_microbatches_equal_the_direct_trace():
     # the peak is the last trace's: each further microbatch raises it by
     # under 1 KiB (the accumulated metrics' scalars)
     assert 0 <= want["memory"]["peak_bytes"] - got["memory"]["peak_bytes"] <= 1024 * (5 - 3)
+
+
+def expert_flops(cfg, m, monkeypatch) -> int:
+    """The FLOPs a rank of the expert products (``moe.expert_ffn``'s three
+    ``torch.bmm``, forward and backward) in a 2-microbatch train step on
+    ``m``, as the tracker counts them: the step's FLOPs less those of the
+    same step with the products replaced by FLOP-free work."""
+    whole = dryrun._trace(cfg, TRAIN, m, 2)["cost"]["flops"]
+    with monkeypatch.context() as patch:
+        patch.setattr(moe, "expert_ffn", lambda params, xe: xe * sum(
+            params[k].sum() for k in ("w_gate", "w_up", "w_down")))
+        rest = dryrun._trace(cfg, TRAIN, m, 2)["cost"]["flops"]
+    return whole - rest
+
+
+@pytest.mark.usefixtures("fake_world")
+def test_expert_products_split_over_the_ffn_dimension(monkeypatch):
+    """3 experts do not split over model=2, so "2d" gives the experts' ffn
+    to model; the MoE site keeps that split, and each rank runs half of
+    every expert's products (tokens gathered over data: one dispatch group)."""
+    cfg = dataclasses.replace(get_smoke("granite-moe-3b-a800m"), n_experts=3)
+    unsharded = expert_flops(cfg, mesh((1, 1)), monkeypatch)
+    assert unsharded > 0
+    assert 2 * expert_flops(cfg, mesh((2, 2)), monkeypatch) == unsharded
 
 
 def test_cli_cell_in_a_fresh_process_starts_no_cuda(tmp_path):

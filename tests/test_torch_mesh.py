@@ -17,11 +17,14 @@
   is held to the JAX reference step within ``test_torch_train_step``'s
   tolerances.
 - Across ranks: four spawned gloo ranks on a 2x2 mesh (layouts ``2d`` and
-  ``fsdp_pure``; tinyllama, mamba2 and granite-moe smoke, fp32): loss and
-  every gradient within rtol 2e-4 / atol 1e-4 of the unsharded step.
+  ``fsdp_pure``; tinyllama, mamba2 and granite-moe smoke, fp32; and
+  granite-moe with 3 experts under ``2d``, whose experts do not split over
+  ``model=2`` so its ``ffn`` takes it): loss and every gradient within rtol
+  2e-4 / atol 1e-4 of the unsharded step.
 - Elastic resharding: onto ``degraded_mesh(ranks[:1], model=1)``, and of a
   checkpoint the JAX package wrote.
 """
+import dataclasses
 import functools
 import os
 import socket
@@ -284,6 +287,15 @@ class TestShardingCases:
         assert {k: _norm(v.spec) for k, v in got.items()} == \
             {k: _norm(v.spec) for k, v in want.items()}
 
+    def test_three_experts_give_the_ffn_dimension_to_model(self):
+        """The 2x2 ffn-split case's layout: 3 experts do not split over
+        model=2, so the experts' ffn takes it."""
+        cfg = dataclasses.replace(get_smoke(FFN_BASE), n_experts=FFN_EXPERTS)
+        sh = S.shardings_for(self.rules((2, 2)), T.param_axes(cfg), T.param_shapes(cfg))
+        moe = sh["layers"][0]["moe"]
+        assert _norm(moe["w_gate"].spec) == _norm(moe["w_up"].spec) == (None, "data", "model")
+        assert _norm(moe["w_down"].spec) == (None, "model", "data")
+
     def test_a_mesh_dimension_of_one_splits_nothing(self):
         from torch.distributed.tensor import Replicate, Shard
         sh = S.shardings_for(self.rules((1, 4)), ("act_batch", "act_vocab"),
@@ -381,6 +393,11 @@ def test_one_rank_bit_check_catches_a_planted_fault(one_rank, monkeypatch):
 
 SHARDED_ARCHS = ("tinyllama-1.1b", "mamba2-1.3b", "granite-moe-3b-a800m")
 SHARDED_LAYOUTS = ("2d", "fsdp_pure")
+# granite-moe smoke with 3 experts ("<arch>/e<n>": n_experts=n): 3 does not
+# split over model=2, so under "2d" the experts' ffn dimension takes model
+FFN_BASE, FFN_EXPERTS = "granite-moe-3b-a800m", 3
+FFN_ARCH = f"{FFN_BASE}/e{FFN_EXPERTS}"
+
 
 def free_port() -> int:
     with socket.socket() as s:
@@ -410,6 +427,7 @@ def run_ranks(script: str, *args: str, world: int = 4, timeout: float = 600) -> 
 SCRIPT = textwrap.dedent("""
     import dataclasses, sys
     import torch, torch.distributed as dist
+    from torch.distributed.tensor import Shard
     from repro_torch.configs import get_smoke, smoke_shape
     from repro_torch.data import batch_for_step
     from repro_torch.distributed import sharding as S, sites
@@ -418,52 +436,87 @@ SCRIPT = textwrap.dedent("""
     from repro_torch.tree import tree_leaves
 
     rank, world, port = (int(a) for a in sys.argv[1:4])
-    archs, layouts, planted = sys.argv[4].split(","), sys.argv[5].split(","), sys.argv[6] == "1"
+    cases = [c.split(":") for c in sys.argv[4].split(",")]      # arch, layout, fault
     torch.set_num_threads(1)
-    if planted:     # every gradient placement taken as its input's
-        real = sites._run
-        sites._run = lambda fn, mesh, args, ins, outs, grads=None: real(fn, mesh, args, ins, outs)
+    real = sites._run
+
+    def grads_dropped(fn, mesh, args, ins, outs, grads=None):
+        # every gradient placement taken as its input's
+        return real(fn, mesh, args, ins, outs)
+
+    def ffn_partial_dropped(fn, mesh, args, ins, outs, grads=None):
+        # the MoE site's x and router gradients taken as whole over the
+        # mesh dimensions that split the experts' ffn
+        if fn.__qualname__.startswith("moe."):
+            ffn = {i for i, p in enumerate(ins[2]) if p == Shard(2)}
+            g_x, g_r = (tuple(ins[k][i] if i in ffn else p for i, p in enumerate(grads[k]))
+                        for k in (0, 1))
+            grads = (g_x, g_r, *grads[2:])
+        return real(fn, mesh, args, ins, outs, grads)
+
+    faults = {"": real, "grads": grads_dropped, "ffn": ffn_partial_dropped}
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=world)
     mesh = make_host_mesh(model=2, device="cpu")
-    for arch in archs:
+    unsharded = {}
+    for key, layout, fault in cases:
+        arch, _, experts = key.partition("/e")
         cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+        if experts:
+            cfg = dataclasses.replace(cfg, n_experts=int(experts))
         batch = TT.to_device(batch_for_step(cfg, smoke_shape(), 0, 1), "cpu")
         params = TT.make_train_state(cfg, torch.Generator().manual_seed(0), "cpu")["params"]
-        loss0, _, g0 = TT.grads_of(cfg, params, batch, kernels=False)
-        for layout in layouts:
-            rules = S.default_rules(mesh, layout=layout)
-            placed = S.place(params, S.shardings_for(
-                rules, TT.train_state_axes(cfg)["params"], TT.train_state_shapes(cfg)["params"]))
+        if key not in unsharded:
+            unsharded[key] = TT.grads_of(cfg, params, batch, kernels=False)
+        loss0, _, g0 = unsharded[key]
+        rules = S.default_rules(mesh, layout=layout)
+        placed = S.place(params, S.shardings_for(
+            rules, TT.train_state_axes(cfg)["params"], TT.train_state_shapes(cfg)["params"]))
+        sites._run = faults[fault]
+        try:
             with TT._under(rules):
                 loss1, _, g1 = TT.grads_of(cfg, placed, TT._placed(batch, cfg, rules, "train"),
                                            kernels=False)
                 loss1 = loss1.full_tensor()
                 g1 = [g.full_tensor() for g in tree_leaves(g1)]
-            ok = torch.allclose(loss1, loss0, rtol=2e-4, atol=1e-4) and all(
-                torch.allclose(a, b, rtol=2e-4, atol=1e-4) for a, b in zip(g1, tree_leaves(g0)))
-            print(f"CASE {arch} {layout} {'OK' if ok else 'DIFFERS'}", flush=True)
+        finally:
+            sites._run = real
+        ok = torch.allclose(loss1, loss0, rtol=2e-4, atol=1e-4) and all(
+            torch.allclose(a, b, rtol=2e-4, atol=1e-4) for a, b in zip(g1, tree_leaves(g0)))
+        print(f"CASE {key} {layout} {fault or '-'} {'OK' if ok else 'DIFFERS'}", flush=True)
     dist.destroy_process_group()
 """)
 
 
+def run_cases(cases) -> dict:
+    """(arch, layout, fault) -> "OK" or "DIFFERS" for each case, all in one
+    set of four ranks; fault "" plants nothing."""
+    out = run_ranks(SCRIPT, ",".join(":".join(c) for c in cases))
+    got = {}
+    for line in out.splitlines():
+        if line.startswith("CASE "):
+            arch, layout, fault, verdict = line.split()[1:]
+            got[(arch, layout, "" if fault == "-" else fault)] = verdict
+    assert set(got) == set(cases), out
+    return got
+
+
 def run_2x2(archs, layouts, planted=False) -> dict:
-    out = run_ranks(SCRIPT, ",".join(archs), ",".join(layouts), "1" if planted else "0")
-    cases = {tuple(line.split()[1:3]): line.split()[3] for line in out.splitlines()
-             if line.startswith("CASE ")}
-    assert len(cases) == len(archs) * len(layouts), out
-    return cases
+    fault = "grads" if planted else ""
+    cases = run_cases([(a, layout, fault) for a in archs for layout in layouts])
+    return {(a, layout): v for (a, layout, _), v in cases.items()}
 
 
 @pytest.fixture(scope="module")
 def sharded_cases():
-    return run_2x2(SHARDED_ARCHS, SHARDED_LAYOUTS)
+    return run_cases([(a, layout, "") for a in SHARDED_ARCHS for layout in SHARDED_LAYOUTS]
+                     + [(FFN_ARCH, "2d", ""), (FFN_ARCH, "2d", "ffn")])
 
 
 @pytest.mark.parametrize("layout", SHARDED_LAYOUTS)
 @pytest.mark.parametrize("arch", SHARDED_ARCHS)
 def test_2x2_gloo_step_matches_the_unsharded_step(arch, layout, sharded_cases):
-    assert sharded_cases[(arch, layout)] == "OK"
+    assert sharded_cases[(arch, layout, "")] == "OK"
 
 
 def test_2x2_check_catches_partial_gradients_taken_as_whole():
@@ -471,6 +524,32 @@ def test_2x2_check_catches_partial_gradients_taken_as_whole():
     batch's ranks given a replicated gradient): the 2x2 check must fail."""
     assert run_2x2(("tinyllama-1.1b",), ("2d",), planted=True) == {
         ("tinyllama-1.1b", "2d"): "DIFFERS"}
+
+
+def test_2x2_gloo_step_with_the_experts_ffn_split_matches_the_unsharded_step(sharded_cases):
+    """3 experts under "2d": the MoE site keeps w_gate and w_up on their ffn
+    columns and w_down on its ffn rows over model=2 (expert-tensor
+    parallelism); loss and every gradient as the unsharded step's."""
+    assert sharded_cases[(FFN_ARCH, "2d", "")] == "OK"
+
+
+def test_2x2_check_catches_the_ffn_split_partial_gradients_taken_as_whole(sharded_cases):
+    """The MoE site's x and router gradients declared whole over the ffn
+    split (each rank's share only its d_ff slice's): the check must fail."""
+    assert sharded_cases[(FFN_ARCH, "2d", "ffn")] == "DIFFERS"
+
+
+def test_the_ffn_split_case_is_the_references_step():
+    """The 3-expert step, unsharded, against the reference's
+    ``build_train_step`` on the Auto-axes mesh, within
+    ``test_torch_train_step``'s tolerances."""
+    jcfg, tcfg = TS.configs(FFN_BASE, n_experts=FFN_EXPERTS)
+    jp, tp = TS.params(jcfg, tcfg)
+    batch = TS.np_batch(jcfg)
+    jstate, jm = TS.jax_steps(jcfg, jp, [batch])
+    tstate, tm = TS.port_steps(tcfg, tp, [batch])
+    errors = TS.step_errors(tcfg, tstate, tm, jstate, jm)
+    assert all(ok for _, ok in errors.values()), errors
 
 
 # ---------------------------------------------------------------------------
