@@ -7,8 +7,9 @@ Phases, each printing one JSON line with its wall time (any failure raises and
 exits non-zero; no phase's error is caught):
 
 1. device  -- ``nvidia-smi`` name and power limit.
-2. build   -- the three Hopper kernels from ``src/repro_torch/csrc`` (nvcc, in
-   parallel) into ``build/kernels/``.
+2. build   -- the three Hopper kernels and the two backward kernels
+   (``flash_attention_bwd.cu``, ``ssd_scan_bwd.cu``) from
+   ``src/repro_torch/csrc`` (nvcc, in parallel) into ``build/kernels/``.
 3. kernel_checks -- each kernel against its plain PyTorch version on the
    card, at the main paths' shapes (flash at tinyllama-1.1b's and
    zamba2-1.2b's): error, the per-CTA plan, and the median time of the
@@ -18,6 +19,16 @@ exits non-zero; no phase's error is caught):
    catch.  Each matmul check also records the decode route's K split (and
    cluster size) and requires two launches to give the same bits; each ssd check also gives
    ``bound_tc_ms``, its work as the kernel does it (3 bf16 products each).
+   The backward kernels: flash's at tinyllama-1.1b's train shape and at
+   each head dim with a ragged S, causal and not (bf16 held to SDPA's fp32
+   backward, fp32 to ``flash_bwd_ref``; planted faults: a non-causal
+   backward, the GQA group sum dropped, D dropped), ssd_scan's at
+   mamba2-1.3b's and zamba2-1.2b's train shapes (held to
+   ``ssd_chunk_bwd_ref`` in float64, at the generator's inputs and four
+   seeds more, dA to a limit of its own; a dropped in_decay gradient must
+   fail); each gives the same
+   bits twice and is timed beside its plain
+   version, its bound and (flash) SDPA's forward + backward.
 4. prefill -- full-width tinyllama-1.1b ``loss_fn`` on B=2 x S=1024 tokens
    from the seed, on the kernel path; logits and loss held against the plain
    path on the card, and each layer's ``flash_attention`` call against its
@@ -74,9 +85,12 @@ exits non-zero; no phase's error is caught):
     launch (forward, remat recompute, both backward products) and every
     flash launch on ``wgmma``; the loss of the first batch lower after the
     steps; two steps from one state give the same bits under
-    ``torch.use_deterministic_algorithms``.  Also the backward's pieces
-    timed at the step's shapes: ``matmul_vjp`` (two kernel products) per
-    projection against cuBLAS, and flash's plain-recompute backward.
+    ``torch.use_deterministic_algorithms``; one flash backward launch a
+    layer and step, on its ``mma`` route.  Also the backward's pieces timed
+    at the step's shapes: ``matmul_vjp`` (two kernel products) per
+    projection against cuBLAS; the flash forward there held against
+    ``attention_ref`` and timed (its backward is kernel_checks' first flash
+    backward case).
 17. train_replay -- the same model, depth cut to 2 layers, trained 12 steps
     through ``launch.train.train`` twice (checkpoints every 5 steps to the
     temporary directory), once uninterrupted and once with failures
@@ -84,10 +98,11 @@ exits non-zero; no phase's error is caught):
     parameters must be bit-identical; the checkpoints' seconds reported.
 18. train_grads -- tinyllama-1.1b and mamba2-1.3b at full width, depth cut
     to 2, B=2 x S=1024: kernel-path gradients against plain-path gradients
-    leaf by leaf (relative L2), in fp32 under a sharp limit and in bf16;
-    planted faults in the backward (a zeroed dW, a non-causal flash
-    recompute, a dropped ``in_decay`` gradient) must fail the fp32 limit;
-    ``ssd_scan``'s plain-recompute backward timed.
+    leaf by leaf (relative L2), in fp32 under a sharp limit and in bf16,
+    each backward kernel launched once a layer; planted faults in the
+    backward (a zeroed dW, a non-causal flash backward, a dropped
+    ``in_decay`` gradient) must fail the fp32 limit; ``ssd_scan``'s backward
+    kernel timed.
 19. sweep_service -- the simulator's sweep service
     (``repro_torch.serving.SimRunner(device="cuda", batch=True)``) driving the
     batch simulator on the card, each simulated result held field by field,
@@ -144,7 +159,8 @@ exits non-zero; no phase's error is caught):
     ("2d"): the state placed by ``reshard_state``, 2 steps through
     ``build_train_step(..., rules=rules)`` under deterministic algorithms,
     bit-identical (loss, grad norm, every parameter and moment) to the same 2
-    steps without rules, ms a step with and without; (b) zamba2-1.2b cut to
+    steps without rules, ms a step with and without, one flash backward
+    launch a layer and step; (b) zamba2-1.2b cut to
     its first 6 layers (one shared attention block) and granite-moe-3b-a800m
     cut to 2, ``loss_fn`` (the prefill step) at B=2 x S=1024 under the rules,
     bit-identical to without (``ssd_scan``, flash and the MoE dispatch
@@ -160,10 +176,16 @@ exits non-zero; no phase's error is caught):
     tracked sweep's card wall beside its wall before the dry-run ran beside
     the card; granite-moe's two cells printed beside their counts when the
     MoE site gathered the experts' d_ff split, and failed if either's FLOPs
-    a rank is above an eighth of those.
+    a rank is above an eighth of those; mamba2-1.3b's and zamba2-1.2b's
+    train_4k cells printed with the all-gather GiB charged to
+    ``mamba2._split_proj``, and failed above 40 % of those when it gathered
+    once a slice.
 23. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
     7-17 and 22, each counted from 0) in all and per route, error, times and
-    bounds per kernel, and each kernel's training launches and backward.
+    bounds per kernel, and each kernel's training launches and backward
+    (flash's and ssd_scan's: the backward kernel's source, its launches on
+    phases 16-18 and 22, each of which must launch one, and its time beside
+    its bound, its plain version and the library call).
 24. the last line: ``{"ok": true, "device": {...}}``.
 
 Weights are random (seeded); the port imports neither jax nor the JAX package.
@@ -207,12 +229,14 @@ from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_bwd_ref  # noqa: E402
 from repro_torch.kernels.ltrf_matmul import (  # noqa: E402
     ltrf_matmul, matmul_plan, matmul_ref, split_k,
 )
 from repro_torch.kernels.ltrf_matmul.ops import DECODE_MAX_CLUSTER  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_bwd_ref  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.frontend.workloads import TRACED_NAMES, build_traced_workload  # noqa: E402
 from repro_torch.data import batch_for_step  # noqa: E402
@@ -259,6 +283,9 @@ AUDIO_ARCH = "musicgen-large"
 # ~264 GB; phi3-medium-14b and granite-20b are cut to 4 to keep the run short
 DEPTH_CUTS = {"llava-next-34b": 12, "dbrx-132b": 2, "phi3-medium-14b": 4, "granite-20b": 4}
 KERNELS = ("ltrf_matmul", "flash_attention", "ssd_scan")
+# the backward kernels' sources, built beside KERNELS (no TPU kernel of their
+# own: the kernels line lists them under their forward kernel's training entry)
+BWD_SOURCES = {"flash_attention": "flash_attention_bwd", "ssd_scan": "ssd_scan_bwd"}
 # tolerances.  ltrf_matmul vs its plain version: the _tol table of the kernel
 # tests (its outputs here are about N(0, 1)).  flash_attention vs its plain
 # version: the bf16 kernel computes S = Q K^T in fp32 (products of bf16
@@ -466,15 +493,20 @@ def forward_launches(cfg) -> dict:
             "ssd_scan": cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0}
 
 
+def chunk_rows(S, Q) -> tuple[int, int, float]:
+    """(chunks, rows inside S, (query, key) pairs of the chunks' lower
+    triangles)."""
+    rows = [min(Q, S - c * Q) for c in range(-(-S // Q))]
+    return len(rows), sum(rows), sum(q * (q + 1) / 2 for q in rows)
+
+
 def ssd_work(B, S, H, P, N, Q) -> tuple[float, float]:
     """(bytes, flops).  Bytes: each input read once, each output written
     once.  Operations: the lower triangle of C B^T once per (b, chunk), and
     per head the lower triangle of (C B^T o L)(x dt) and the state product,
     over the rows of each chunk that lie inside S."""
-    nc = -(-S // Q)
-    rows = [min(Q, S - c * Q) for c in range(nc)]
-    tri = sum(q * (q + 1) / 2 for q in rows)
-    flops = B * (2 * N * tri + H * (2 * P * tri + 2 * P * N * sum(rows)))
+    nc, rows, tri = chunk_rows(S, Q)
+    flops = B * (2 * N * tri + H * (2 * P * tri + 2 * P * N * rows))
     nbytes = 4 * (B * S * H * P + B * S * H + H + 2 * B * S * N
                   + B * nc * H * (Q * P + P * N + Q + 1))
     return nbytes, flops
@@ -520,9 +552,10 @@ def ptxas_summary(log: str) -> dict:
 
 
 def phase_build() -> dict:
-    logs = _build.build(KERNELS)
+    names = (*KERNELS, *BWD_SOURCES.values())
+    logs = _build.build(names)
     summary = {}
-    for name in KERNELS:
+    for name in names:
         log = logs.get(name) or (_build.BUILD_DIR / f"{name}.log").read_text()
         summary[name] = ptxas_summary(log)
     return {"ptxas": summary}
@@ -653,23 +686,222 @@ def check_ssd(dev, gen) -> list:
     return res
 
 
+def flash_bwd_inputs(B, H, KV, S, d, causal, dtype, dev, gen):
+    """q, k, v, the kernel forward's O and LSE, and dO."""
+    q = torch.randn(B, H, S, d, device=dev, generator=gen).to(dtype)
+    k, v = (torch.randn(B, KV, S, d, device=dev, generator=gen).to(dtype) for _ in range(2))
+    do = torch.randn(B, H, S, d, device=dev, generator=gen).to(dtype)
+    return (q, k, v, *flash_ops._attend(q, k, v, causal, with_lse=True), do)
+
+
+def sdpa_grads(q, k, v, do, causal):
+    """SDPA's fp32 backward on the same inputs, K and V repeated over each group."""
+    rep = q.shape[1] // k.shape[1]
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q32, k32.repeat_interleave(rep, 1),
+                                         v32.repeat_interleave(rep, 1), is_causal=causal)
+    return torch.autograd.grad(out, (q32, k32, v32), do.float())
+
+
+def grad_errs(grads, want) -> dict:
+    return {n: rel_l2(g, r) for n, g, r in zip(("dq", "dk", "dv"), grads, want)}
+
+
+def flash_bwd_faults(q, k, v, o, lse, do) -> dict:
+    """The planted faults of the flash backward, each run on the kernel: a
+    non-causal backward (of the non-causal forward), the GQA group sum
+    dropped (dK, dV of the group's first head times the group), D dropped
+    (O read as zeros)."""
+    rep = q.shape[1] // k.shape[1]
+    dq, dke, dve = flash_ops.flash_bwd(q, *(t.repeat_interleave(rep, 1) for t in (k, v)), o, lse,
+                                       do, True)
+    return {"not_causal": flash_ops.flash_bwd(q, k, v, *flash_ops._attend(q, k, v, False, True),
+                                              do, False),
+            "group_sum_dropped": (dq, dke[:, ::rep] * rep, dve[:, ::rep] * rep),
+            "delta_dropped": flash_ops.flash_bwd(q, k, v, torch.zeros_like(o), lse, do, True)}
+
+
+def flash_bwd_bound(B, H, KV, S, d, causal, dtype) -> tuple[float, str]:
+    """Five products (S again, dV, dP, dQ, dK) over the (query, key) pairs
+    this run needs, reading q, k, v, O, dO (and the LSE) and writing dq, dk, dv."""
+    pairs = B * H * (S * (S + 1) / 2 if causal else S * S)
+    size = torch.finfo(dtype).bits // 8
+    # q, O, dO read and dq written; k, v read and dk, dv written; the LSE
+    nbytes = 4 * (B * H + B * KV) * S * d * size + 4 * B * H * S
+    return bound(nbytes, 10 * d * pairs, dtype)
+
+
+def check_flash_bwd(cfg, dev, gen) -> list:
+    """flash's backward kernel (``flash_bwd``) at tinyllama's train shape and
+    at each head dim with a ragged S, causal and not, in bf16 (held to
+    SDPA's fp32 backward) and fp32 (held to ``flash_bwd_ref``); two launches
+    give the same bits; at the train shape the planted faults must fail, and
+    the kernel, the plain version and SDPA's forward + backward are timed."""
+    res = []
+    cases = [(TRAIN_B, cfg.n_heads, cfg.n_kv_heads, TRAIN_S, cfg.hd, True, torch.bfloat16)]
+    cases += [(2, 8, 2, 1000, d, causal, dt) for d in flash_ops.HEAD_DIMS
+              for causal in (True, False) for dt in (torch.bfloat16, torch.float32)]
+    for i, (B, H, KV, S, d, causal, dt) in enumerate(cases):
+        q, k, v, o, lse, do = ins = flash_bwd_inputs(B, H, KV, S, d, causal, dt, dev, gen)
+        before = flash_ops.flash_bwd.launches
+        got = flash_ops.flash_bwd(*ins, causal)
+        again = flash_ops.flash_bwd(*ins, causal)
+        torch.cuda.synchronize()
+        launched = flash_ops.flash_bwd.launches - before
+        if dt == torch.bfloat16:
+            want, limit = sdpa_grads(q, k, v, do, causal), FLASH_GRAD_REL_L2
+        else:
+            want, limit = flash_bwd_ref(*ins, causal), FLASH_BWD_F32_REL_L2
+        rec = {"B": B, "H": H, "KV": KV, "S": S, "d": d, "causal": causal,
+               "dtype": str(dt).split(".")[-1], "rel_l2": grad_errs(got, want), "limit": limit,
+               "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                                  for g, w in zip(got, want)),
+               "same_bits_twice": all(torch.equal(a, b) for a, b in zip(got, again))}
+        del got, again
+        rec["ms"], rec["eager_ms"] = time_ms([lambda: flash_ops.flash_bwd(*ins, causal)])
+        rec["bound_ms"], rec["bound_by"] = flash_bwd_bound(B, H, KV, S, d, causal, dt)
+        if i == 0:
+            rec["planted_faults"] = {n: grad_errs(g, want)
+                                     for n, g in flash_bwd_faults(*ins).items()}
+            free_memory()
+            rec["plain_ms"] = eager_ms(lambda: flash_bwd_ref(*ins, causal))
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+            def sdpa():
+                out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+                torch.autograd.grad(out, (qg, kg, vg), do)
+
+            rec["library_ms"] = eager_ms(sdpa)
+            rec["library"] = "scaled_dot_product_attention forward + backward, bf16"
+        del want, ins, q, k, v, o, lse, do
+        free_memory()
+        emit({"check": "flash_attention_bwd", **rec})
+        check(launched == 2, f"flash backward launches {launched}: {rec}")
+        check(rec["same_bits_twice"], f"flash backward: two launches differ: {rec}")
+        check(max(rec["rel_l2"].values()) <= limit, f"flash backward disagrees: {rec}")
+        for name, errs in rec.get("planted_faults", {}).items():
+            check(max(errs.values()) > limit, f"flash backward check passes {name}: {rec}")
+        res.append(rec)
+    return res
+
+
+def ssd_bwd_bound(B, S, H, P, N, Q) -> tuple[float, str]:
+    """The backward reads the inputs and the outputs' gradients and writes
+    the inputs' gradients.  Its products, counted as ``ssd_work`` counts the
+    forward's, at the fp32 rate: per (b, chunk) C B^T again, dG B and dG^T C
+    over the lower triangle; per head dM = dy xdt^T and M^T dy over the
+    lower triangle, B dS^T and (xdt o decay_end)^T dS over the rows."""
+    nbytes = ssd_work(B, S, H, P, N, Q)[0]
+    in_bytes = 4 * (B * S * H * P + B * S * H + H + 2 * B * S * N)
+    _, rows, tri = chunk_rows(S, Q)
+    flops = B * (3 * 2 * N * tri + H * (2 * 2 * P * tri + 2 * 2 * P * N * rows))
+    return bound(nbytes + in_bytes, flops, torch.float32)
+
+
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def ssd_bwd_limits() -> dict:
+    return {n: SSD_BWD_DA_REL_L2 if n == "dA" else SSD_BWD_REL_L2 for n in SSD_GRADS}
+
+
+def within(errs: dict, limits: dict) -> bool:
+    return all(errs[n] <= limits[n] for n in errs)
+
+
+def ssd_bwd_readings(B, S, H, P, N, Q, dev, gen) -> tuple:
+    """(inputs, output gradients, the kernel's gradients, the float64 plain
+    version's, and each gradient's relative L2 for the kernel and for the
+    fp32 plain version against the float64 one)."""
+    ins = ssd_inputs(B, S, H, P, N, dev, gen)
+    grads = tuple(torch.randn(o.shape, device=dev, generator=gen) for o in ssd_chunk(*ins, Q))
+    got = ssd_ops.ssd_chunk_bwd(ins, Q, grads)
+    want = ssd_chunk_bwd_ref(*(t.double() for t in ins), Q, tuple(g.double() for g in grads))
+    errs = ({n: rel_l2(g, w) for n, g, w in zip(SSD_GRADS, got, want)},
+            {n: rel_l2(g, w) for n, g, w in zip(SSD_GRADS, ssd_chunk_bwd_ref(*ins, Q, grads),
+                                                 want)})
+    return ins, grads, got, want, errs
+
+
+def check_ssd_bwd(dev, gen) -> list:
+    """ssd_scan's backward kernel (``ssd_chunk_bwd``) at mamba2-1.3b's and
+    zamba2-1.2b's train shapes, per gradient against ``ssd_chunk_bwd_ref``
+    run in float64 (its fp32 run's own distance beside it), on the inputs of
+    ``gen`` and of SSD_BWD_SEEDS more seeds; two launches give the same bits;
+    a dropped in_decay gradient must fail; the kernel and the fp32 plain
+    version timed."""
+    res = []
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        c = get_arch(arch)
+        B, S, H = GRAD_B, TRAIN_S, c.ssm_expand * c.d_model // c.ssm_headdim
+        P, N, Q = c.ssm_headdim, c.ssm_state, c.ssm_chunk
+        before = ssd_ops.ssd_chunk_bwd.launches
+        ins, grads, got, want, (errs, plain_errs) = ssd_bwd_readings(B, S, H, P, N, Q, dev, gen)
+        again = ssd_ops.ssd_chunk_bwd(ins, Q, grads)
+        torch.cuda.synchronize()
+        launched = ssd_ops.ssd_chunk_bwd.launches - before
+        planted = ssd_ops.ssd_chunk_bwd(ins, Q, (grads[0], grads[1], None, grads[3]))
+        rec = {"arch": arch, "B": B, "S": S, "H": H, "P": P, "N": N, "Q": Q, "dtype": "float32",
+               "rel_l2": errs, "plain_fp32_rel_l2": plain_errs,
+               "planted_in_decay_dropped": {n: rel_l2(g, w) for n, g, w in
+                                            zip(SSD_GRADS, planted, want)},
+               "limit": ssd_bwd_limits(),
+               "max_abs_err": max(float((g.double() - w).abs().max()) for g, w in zip(got, want)),
+               "same_bits_twice": all(torch.equal(a, b) for a, b in zip(got, again))}
+        del got, again, want, planted
+        free_memory()
+        rec["seeds"] = []
+        for seed in range(SSD_BWD_SEEDS):
+            more = ssd_bwd_readings(B, S, H, P, N, Q, dev,
+                                    torch.Generator(dev).manual_seed(1000 + seed))[-1]
+            rec["seeds"].append({"seed": 1000 + seed, "rel_l2": more[0],
+                                 "plain_fp32_rel_l2": more[1]})
+            del more
+            free_memory()
+        rec["ms"], rec["eager_ms"] = time_ms([lambda: ssd_ops.ssd_chunk_bwd(ins, Q, grads)])
+        rec["plain_ms"] = eager_ms(lambda: ssd_chunk_bwd_ref(*ins, Q, grads))
+        rec["library_ms"] = None                 # no PyTorch call computes it
+        rec["bound_ms"], rec["bound_by"] = ssd_bwd_bound(B, S, H, P, N, Q)
+        emit({"check": "ssd_scan_bwd", **rec})
+        check(launched == 2, f"ssd backward launches {launched}: {rec}")
+        check(rec["same_bits_twice"], f"ssd backward: two launches differ: {rec}")
+        for e in [rec["rel_l2"]] + [r["rel_l2"] for r in rec["seeds"]]:
+            check(within(e, rec["limit"]), f"ssd backward disagrees: {rec}")
+        check(not within(rec["planted_in_decay_dropped"], rec["limit"]),
+              f"ssd backward check passes a dropped in_decay gradient: {rec}")
+        res.append(rec)
+        del ins, grads
+        free_memory()
+    return res
+
+
 def phase_kernel_checks(cfgs, dev) -> dict:
     gen = torch.Generator(dev).manual_seed(123)
     return {"ltrf_matmul": check_matmuls(cfgs, dev, gen),
             "flash_attention": check_flash(cfgs[0], cfgs[2], cfgs[3:], dev, gen),
-            "ssd_scan": check_ssd(dev, gen)}
+            "ssd_scan": check_ssd(dev, gen),
+            "flash_attention_bwd": check_flash_bwd(cfgs[0], dev, gen),
+            "ssd_scan_bwd": check_ssd_bwd(dev, gen)}
 
 
 def reset_counts() -> None:
-    for kern in (ltrf_matmul, flash_attention, ssd_scan):
+    for kern in (ltrf_matmul, flash_attention, ssd_scan, flash_ops.flash_bwd,
+                 ssd_ops.ssd_chunk_bwd):
         kern.launches = 0
-    for kern in (ltrf_matmul, flash_attention):
+    for kern in (ltrf_matmul, flash_attention, flash_ops.flash_bwd):
         kern.launches_by_route = dict.fromkeys(kern.launches_by_route, 0)
 
 
 def read_counts() -> dict:
     return {"ltrf_matmul": ltrf_matmul.launches, "flash_attention": flash_attention.launches,
             "ssd_scan": ssd_scan.launches}
+
+
+def read_backward() -> dict:
+    """The backward kernels' launches, under their forward kernel's name."""
+    return {"flash_attention": flash_ops.flash_bwd.launches,
+            "ssd_scan": ssd_ops.ssd_chunk_bwd.launches,
+            "flash_attention_by_route": dict(flash_ops.flash_bwd.launches_by_route)}
 
 
 def read_routes() -> dict:
@@ -1357,18 +1589,34 @@ GRAD_LAYERS, GRAD_B = 2, 2
 # there bound gross faults only.
 TRAIN_GRAD_REL_L2 = {ARCH: {"float32": 1e-4, "bfloat16": 3e-2},
                      SSM_ARCH: {"float32": 2e-3, "bfloat16": 4e-2}}
-# flash's backward (bf16 gradients of the plain recompute) against SDPA's
-# fp32 backward on the same bf16 inputs, at the train shape, per gradient
-# as a relative L2: on an H100 80GB HBM3 at 700 W sound reads were
-# 1.7e-3-2.4e-3 (the gradients' bf16 rounding, dk and dv summed over each
-# group in bf16) and a non-causal recompute 0.88-0.91.  The train shape's
+# flash's backward (bf16 gradients) against SDPA's fp32 backward on the
+# same bf16 inputs, at the train shape, per gradient as a relative L2: on an
+# H100 80GB HBM3 at 700 W the plain recompute read 1.7e-3-2.4e-3 (the
+# gradients' bf16 rounding, dk and dv summed over each group in bf16) and a
+# non-causal recompute 0.88-0.91; the backward kernel also rounds P and dS
+# once to bf16 before its products (2.4e-3 emulated on the CPU).  The train shape's
 # matmul products (forward, dX, dW at M = 8192) are held to TOL's bf16 row
 # at unit RMS: sound reads used <= 16 % of it, a planted tile >= 19x.
 FLASH_GRAD_REL_L2 = 1e-2
+# flash's fp32 backward kernel (CUDA cores) against flash_bwd_ref on the
+# card, per gradient: fp32 sum order only
+FLASH_BWD_F32_REL_L2 = 1e-5
+# ssd_scan's backward kernel (fp32 FFMA) against ssd_chunk_bwd_ref run in
+# float64, per gradient as a relative L2, at the inputs of the kernel
+# checks' generator and of SSD_BWD_SEEDS more seeds.  On an H100 80GB HBM3
+# at 700 W at mamba2-1.3b's train shape, over five inputs, dx, dB, dC read
+# <= 2.0e-7 and ddt <= 3.2e-6 (the fp32 plain version's own <= 3.5e-6 and
+# 2.6e-5).  dA sums a reverse cumsum whose terms cancel, so in fp32 it reads
+# 4.3e-5-1.07e-4 (the fp32 plain version's own 4.4e-5-1.24e-4, 1.17x the
+# kernel's at most): it has a limit of its own.  A dropped in_decay gradient
+# reads 1.6e-3 on ddt and 2.1e-3 on dA, and must read above a limit.
+SSD_BWD_REL_L2 = 1e-4
+SSD_BWD_DA_REL_L2 = 3e-4
+SSD_BWD_SEEDS = 4
 
 real_matmul_vjp = mm_ops.matmul_vjp
-real_flash_vjp = flash_ops.flash_vjp
-real_ssd_vjp = ssd_ops.ssd_chunk_vjp
+real_flash_bwd = flash_ops.flash_bwd
+real_ssd_bwd = ssd_ops.ssd_chunk_bwd
 
 
 def _dw_zeroed(x, w, dy, needs):
@@ -1379,9 +1627,10 @@ def _dw_zeroed(x, w, dy, needs):
 # planted faults in the kernels' backward: name -> (module, attribute, replacement)
 GRAD_FAULTS = {
     "matmul_dw_zeroed": (mm_ops, "matmul_vjp", _dw_zeroed),
-    "flash_not_causal": (flash_ops, "flash_vjp",
-                         lambda q, k, v, causal, do: real_flash_vjp(q, k, v, False, do)),
-    "ssd_in_decay_dropped": (ssd_ops, "ssd_chunk_vjp", lambda ins, chunk, g: real_ssd_vjp(
+    "flash_not_causal": (flash_ops, "flash_bwd", lambda q, k, v, o, lse, do, causal:
+                         real_flash_bwd(q, k, v, *flash_ops._attend(q, k, v, False, True), do,
+                                        False)),
+    "ssd_in_decay_dropped": (ssd_ops, "ssd_chunk_bwd", lambda ins, chunk, g: real_ssd_bwd(
         ins, chunk, (g[0], g[1], None, g[3]))),
 }
 ARCH_GRAD_FAULTS = {ARCH: ("matmul_dw_zeroed", "flash_not_causal"),
@@ -1503,68 +1752,36 @@ def check_train_matmuls(cfg, dev) -> dict:
 
 
 def check_train_flash(cfg, dev) -> dict:
-    """flash_attention at one layer's train shape: the kernel forward held
-    against attention_ref (a zeroed KV tile must fail), its backward
-    (``flash_vjp``: the plain version recomputed) held against SDPA's fp32
-    backward on the same inputs (a non-causal recompute must fail); each
-    timed, beside SDPA's bf16 forward and backward."""
+    """flash_attention's forward at one layer's train shape: the kernel held
+    against attention_ref (a zeroed KV tile must fail), its output's bits
+    unchanged by writing the LSE, and its time.  The backward kernel at this
+    shape is held and timed by ``check_flash_bwd`` (its first case)."""
     gen = torch.Generator(dev).manual_seed(12)
     B, H, KV, S, d = TRAIN_B, cfg.n_heads, cfg.n_kv_heads, TRAIN_S, cfg.hd
-    q = torch.randn(B, H, S, d, device=dev, generator=gen).bfloat16()
-    k, v = (torch.randn(B, KV, S, d, device=dev, generator=gen).bfloat16() for _ in range(2))
-    do = torch.randn(B, H, S, d, device=dev, generator=gen).bfloat16()
+    q, k, v, o, lse, do = flash_bwd_inputs(B, H, KV, S, d, True, torch.bfloat16, dev, gen)
     want = attention_ref(q, k, v)
     rec = {"forward": {**compare_flash(flash_attention(q, k, v), want),
                        "planted_fault": compare_flash(
-                           attention_ref(q, *zero_kv_tile(k, v, 2)), want)}}
-    # the backward's yardstick: SDPA in fp32, K and V repeated over each group
-    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(q32, k32.repeat_interleave(H // KV, 1),
-                                         v32.repeat_interleave(H // KV, 1), is_causal=True)
-    want = torch.autograd.grad(out, (q32, k32, v32), do.float())
-    del out, q32, k32, v32
-    free_memory()
-
-    def grad_errs(grads) -> dict:
-        return {n: rel_l2(g, r) for n, g, r in zip(("dq", "dk", "dv"), grads, want)}
-
-    rec["backward"] = {"rel_l2": grad_errs(flash_ops.flash_vjp(q, k, v, True, do)),
-                       "planted_not_causal": grad_errs(flash_ops.flash_vjp(q, k, v, False, do)),
-                       "limit": FLASH_GRAD_REL_L2}
+                           attention_ref(q, *zero_kv_tile(k, v, 2)), want)},
+           "lse_leaves_the_output_bits": bool(torch.equal(o, flash_attention(q, k, v)))}
     del want
     free_memory()
     emit({"check": "flash_attention_train", **rec})
     check(rec["forward"]["within_tol"], f"flash at the train shape disagrees with plain: {rec}")
     check(not rec["forward"]["planted_fault"]["within_tol"],
           f"flash check at the train shape passes a zeroed KV tile: {rec}")
-    check(max(rec["backward"]["rel_l2"].values()) <= FLASH_GRAD_REL_L2,
-          f"flash backward at the train shape disagrees with SDPA's: {rec}")
-    check(max(rec["backward"]["planted_not_causal"].values()) > FLASH_GRAD_REL_L2,
-          f"flash backward check passes a non-causal recompute: {rec}")
-    bwd = eager_ms(lambda: flash_ops.flash_vjp(q, k, v, True, do))
+    check(rec["lse_leaves_the_output_bits"], "flash: writing the LSE changed the output")
     fwd = eager_ms(lambda: flash_attention(q, k, v))
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-
-    def sdpa():
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
-        torch.autograd.grad(out, (qg, kg, vg), do)
-
-    lib = eager_ms(sdpa)
-    free_memory()
-    # bounds from the shapes: the forward's two products over the causal
-    # (q, k) pairs; the backward's five (S = Q K^T again, dV, dP, dQ, dK),
-    # reading q, k, v, dO and writing dq, dk, dv
+    # the forward's bound from the shapes: its two products over the causal
+    # (q, k) pairs
     pairs = B * H * S * (S + 1) / 2
     fwd_bound = bound((2 * q.numel() + k.numel() + v.numel()) * 2, 4 * d * pairs,
                       torch.bfloat16)
-    bwd_bound = bound((3 * q.numel() + 2 * k.numel() + 2 * v.numel()) * 2, 10 * d * pairs,
-                      torch.bfloat16)
+    del q, k, v, o, lse, do
+    free_memory()
     return {"unit": f"one layer at B={B}, H={H}, KV={KV}, S={S}, d={d}, bf16, causal",
-            **rec, "backward_ms": bwd, "kernel_forward_ms": fwd,
-            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-            "backward_bound_ms": bwd_bound[0], "backward_bound_by": bwd_bound[1],
-            "library_forward_backward_ms": lib, "layers_per_step": cfg.n_layers,
-            "backward_ms_per_step": cfg.n_layers * bwd}
+            **rec, "kernel_forward_ms": fwd, "bound_ms": fwd_bound[0],
+            "bound_by": fwd_bound[1], "layers_per_step": cfg.n_layers}
 
 
 def phase_train_tinyllama(cfg, dev, seed) -> dict:
@@ -1588,6 +1805,7 @@ def phase_train_tinyllama(cfg, dev, seed) -> dict:
         walls.append(1e3 * (time.perf_counter() - t0))
         metrics.append({k: float(v) for k, v in m.items()})
     counts, routes = read_counts(), read_routes()     # the main path's launches
+    backward = read_backward()
     peak = torch.cuda.max_memory_allocated()
     want = {k: TRAIN_STEPS * v for k, v in train_step_launches(cfg).items()}
     loss_after = float(evaluate(state["params"], batches[0])["loss"])
@@ -1602,6 +1820,7 @@ def phase_train_tinyllama(cfg, dev, seed) -> dict:
            "losses": [m["loss"] for m in metrics], "grad_norms": [m["grad_norm"] for m in metrics],
            "lrs": [m["lr"] for m in metrics], "loss_first_batch_before": loss_before,
            "loss_first_batch_after": loss_after, "launches": counts, "launches_by_route": routes,
+           "backward_launches": backward,
            "launches_per_step": train_step_launches(cfg), "state_gb":
            {k: v / 1e9 for k, v in state_bytes.items()},
            "peak_memory_gb": peak / 1e9,
@@ -1633,11 +1852,14 @@ def phase_train_tinyllama(cfg, dev, seed) -> dict:
     del state, twin, a, b
     free_memory()
     out["matmul_backward"] = check_train_matmuls(cfg, dev)
-    out["flash_backward"] = check_train_flash(cfg, dev)
+    out["flash_train_shape"] = check_train_flash(cfg, dev)
     check(counts == want, f"train launches {counts}, want {want}")
     for name in routes:
         check(routes[name]["wgmma"] == counts[name],
               f"train {name} routes {routes[name]}: every launch on wgmma")
+    check(backward["flash_attention"] == TRAIN_STEPS * cfg.n_layers
+          == backward["flash_attention_by_route"]["mma"],
+          f"train flash backward launches {backward}: one a layer and step, on mma")
     check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
           f"train losses or grad norms not finite: {out}")
     check(loss_after < loss_before, f"the first batch's loss did not fall: {out}")
@@ -1659,7 +1881,7 @@ def phase_train_replay(dev, seed) -> dict:
                          .iterdir())
         shutil.rmtree(tmp / "a")
         b = train(ARCH, ckpt_dir=str(tmp / "b"), inject_failures=REPLAY_FAILURES, **kw)
-        counts, routes = read_counts(), read_routes()
+        counts, routes, backward = read_counts(), read_routes(), read_backward()
     finally:
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1673,12 +1895,13 @@ def phase_train_replay(dev, seed) -> dict:
                              "losses": a["losses"]},
            "with_failures": {"wall_s": b["wall_s"], "ckpt": b["ckpt_timings"],
                              "losses": b["losses"]},
-           "launches": counts, "launches_by_route": routes}
+           "launches": counts, "launches_by_route": routes, "backward_launches": backward}
     del a, b
     free_memory()
     check(out["restarts"] == len(REPLAY_FAILURES), f"replay restarts: {out}")
     check(out["final_step"] == [REPLAY_STEPS] * 2, f"replay steps: {out}")
     check(same, f"replayed training gave other parameters: {out}")
+    check(backward["flash_attention"] > 0, f"replay: no flash backward launch: {backward}")
     for name in routes:
         check(routes[name]["wgmma"] == counts[name],
               f"replay {name} routes {routes[name]}: every launch on wgmma")
@@ -1690,13 +1913,15 @@ def grad_rel_l2(gk, gp) -> dict:
 
 
 def grads_vs_plain(cfg, params, batch, faults) -> dict:
+    reset_counts()
     lk, _, gk = grads_of(cfg, params, batch)
+    backward = read_backward()
     lp, _, gp = grads_of(cfg, params, batch, kernels=False)
     errs = grad_rel_l2(gk, gp)
     del gk
     worst = sorted(errs.items(), key=lambda kv: -kv[1])
     out = {"loss": float(lk), "loss_plain": float(lp), "max_rel_l2": worst[0][1],
-           "worst_leaves": worst[:5], "leaves": len(errs)}
+           "worst_leaves": worst[:5], "leaves": len(errs), "backward_launches": backward}
     planted = {}
     for name in faults:
         with patched(*GRAD_FAULTS[name]):
@@ -1711,26 +1936,19 @@ def grads_vs_plain(cfg, params, batch, faults) -> dict:
 
 
 def time_ssd_backward(cfg, dev) -> dict:
-    """ssd_scan's backward (``ssd_chunk_vjp``: ssd_chunk_ref recomputed) at
-    one layer's shape in train_grads, beside the kernel forward."""
+    """ssd_scan's backward kernel (``ssd_chunk_bwd``) at one layer's shape in
+    train_grads, beside the kernel forward."""
     H = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
     gen = torch.Generator(dev).manual_seed(13)
     ins = ssd_inputs(GRAD_B, TRAIN_S, H, cfg.ssm_headdim, cfg.ssm_state, dev, gen)
     outs = ssd_chunk(*ins, cfg.ssm_chunk)
     grads = tuple(torch.randn_like(o) for o in outs)
-    bwd = eager_ms(lambda: ssd_ops.ssd_chunk_vjp(ins, cfg.ssm_chunk, grads))
+    bwd = eager_ms(lambda: ssd_ops.ssd_chunk_bwd(ins, cfg.ssm_chunk, grads))
     fwd = eager_ms(lambda: ssd_chunk(*ins, cfg.ssm_chunk))
     del ins, outs, grads
     free_memory()
-    # bounds from the shapes at the fp32 rate: the backward reads the inputs
-    # and the outputs' gradients and writes the inputs' gradients, and does
-    # about 2.5 times the forward's products (as attention's backward does)
     shape = (GRAD_B, TRAIN_S, H, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
-    nbytes, flops = ssd_work(*shape)
-    B, S, P, N = GRAD_B, TRAIN_S, cfg.ssm_headdim, cfg.ssm_state
-    in_bytes = 4 * (B * S * H * P + B * S * H + H + 2 * B * S * N)
-    fwd_bound, bwd_bound = ssd_bound(*shape), bound(nbytes + in_bytes, 2.5 * flops,
-                                                    torch.float32)
+    fwd_bound, bwd_bound = ssd_bound(*shape), ssd_bwd_bound(*shape)
     return {"unit": (f"one layer at B={GRAD_B}, S={TRAIN_S}, H={H}, P={cfg.ssm_headdim}, "
                      f"N={cfg.ssm_state}, Q={cfg.ssm_chunk}, fp32"),
             "backward_ms": bwd, "kernel_forward_ms": fwd,
@@ -1755,6 +1973,18 @@ def phase_train_grads(dev, seed) -> dict:
         free_memory()
         out[arch] = rec
     out["ssd_backward"] = time_ssd_backward(get_arch(SSM_ARCH), dev)
+    # the sound kernel-path gradients' backward launches, one a layer
+    runs = [out[a][dt]["backward_launches"] for a in (ARCH, SSM_ARCH)
+            for dt in ("bfloat16", "float32")]
+    out["backward_launches"] = {
+        "flash_attention": sum(r["flash_attention"] for r in runs),
+        "ssd_scan": sum(r["ssd_scan"] for r in runs),
+        "flash_attention_by_route": {k: sum(r["flash_attention_by_route"][k] for r in runs)
+                                     for k in flash_ops.BWD_ROUTES.values()}}
+    for arch, name in ((ARCH, "flash_attention"), (SSM_ARCH, "ssd_scan")):
+        for dt in ("bfloat16", "float32"):
+            got = out[arch][dt]["backward_launches"][name]
+            check(got == GRAD_LAYERS, f"{arch} {dt} gradients: {got} {name} backward launches")
     for arch, limits in TRAIN_GRAD_REL_L2.items():
         out[arch]["limits"] = limits
         for dtype, limit in limits.items():
@@ -2431,6 +2661,12 @@ TRACKED_WALL_BEFORE_S = 392.4
 # above an eighth of these has lost it.
 MOE_GATHERED = {"train_4k": {"flops_per_rank": 6.60e15, "all_gather_gib": 510.8},
                 "decode_32k": {"flops_per_rank": 1.98e11}}
+# the Mamba2 models' train_4k cells on 16x16 when mamba2._split_proj sliced
+# the column-split in_proj output three times, each slice gathering the whole
+# tensor (on the card's host, torch 2.11; PERF.md §6): the all-gather GiB
+# charged to _split_proj.  Gathered once, they are a third; a cell above 40 %
+# of these gathers more than once.
+SPLIT_PROJ_GATHERED_GIB = {SSM_ARCH: 3 * 99.75, HYBRID_ARCH: 3 * 77.78}
 
 
 def dryrun_start(out_dir: Path) -> list:
@@ -2501,6 +2737,9 @@ def dryrun_read(procs, out_dir: Path, started: float, card: str) -> dict:
                     "collectives": {k: v for k, v in coll.items()
                                     if isinstance(v, dict) and v["count"]},
                     "all_gather_gib_of": all_gathers_of(rec["collectives_by_source"]),
+                    "split_proj_all_gather_gib": sum(
+                        v["bytes"] for k, v in rec["collectives_by_source"].items()
+                        if k.startswith("all-gather ") and k.endswith(" _split_proj")) / 2 ** 30,
                     "cuda_initialized": rec["cuda_initialized"]}
     moe = {}
     for shp, gathered in MOE_GATHERED.items():
@@ -2520,7 +2759,23 @@ def dryrun_read(procs, out_dir: Path, started: float, card: str) -> dict:
               f"mesh: {MOE_ARCH} {shp} runs {moe[shp]['flops_per_rank']:.4g} FLOPs a rank, "
               f"above an eighth of {gathered['flops_per_rank']:.3g}: the experts' d_ff "
               f"split is gathered")
-    return {"cells": cells, "done_after_s": done, "moe_ffn_split": moe}
+    split = {}
+    for arch, gathered in SPLIT_PROJ_GATHERED_GIB.items():
+        cell = cells[f"{arch}/train_4k/pod16x16"]
+        split[arch] = {"split_proj_all_gather_gib": cell["split_proj_all_gather_gib"],
+                       "all_gather_gib": cell["collectives"].get(
+                           "all-gather", {"bytes": 0})["bytes"] / 2 ** 30,
+                       "gathered_per_slice_gib": gathered}
+        print(f"mesh dry-run {arch} train_4k 16x16 ({card}; counts, no device): all-gather "
+              f"{split[arch]['all_gather_gib']:.2f} GiB, of it _split_proj "
+              f"{split[arch]['split_proj_all_gather_gib']:.2f} GiB (gathered per slice: "
+              f"{gathered:.2f})", flush=True)
+        check(split[arch]["split_proj_all_gather_gib"] <= 0.4 * gathered,
+              f"mesh: {arch} train_4k gathers {split[arch]['split_proj_all_gather_gib']:.2f} GiB "
+              f"in _split_proj, above 40 % of {gathered:.2f}: the in_proj output is gathered "
+              "more than once")
+    return {"cells": cells, "done_after_s": done, "moe_ffn_split": moe,
+            "split_proj_gathers": split}
 
 
 def counted(fn, *a):
@@ -2560,6 +2815,7 @@ def mesh_train(cfg, dev, seed, rules) -> tuple:
         del state
         (placed, mesh_m, mesh_walls), counts, routes = counted(
             timed_steps, build_train_step(cfg, TRAIN_OPT, rules=rules), placed, batches)
+        backward = read_backward()
     finally:
         torch.use_deterministic_algorithms(False)
     same = all(torch.equal(a, b.to_local())
@@ -2570,11 +2826,13 @@ def mesh_train(cfg, dev, seed, rules) -> tuple:
            "step_ms_mesh": mesh_walls, "step_ms_plain": plain_walls,
            "bit_identical_state": same,
            "bit_identical_metrics": mesh_m == plain_m,
-           "launches": counts, "launches_by_route": routes}
+           "launches": counts, "launches_by_route": routes, "backward_launches": backward}
     del plain, placed
     free_memory()
     want = {k: MESH_STEPS * v for k, v in train_step_launches(cfg).items()}
     check(counts == want, f"mesh train launches {counts}, want {want}")
+    check(backward["flash_attention"] == MESH_STEPS * cfg.n_layers,
+          f"mesh train flash backward launches {backward}: one a layer and step")
     check(same and out["bit_identical_metrics"],
           f"mesh: the train steps under the rules differ from the steps without: {out}")
     return out, counts, routes
@@ -2648,6 +2906,7 @@ def phase_mesh(cfgs, dev, seed, dryrun, tracked_wall_s, card) -> dict:
         if own:
             dist.destroy_process_group()
     out["launches"] = {n: sum(c[n] for c, _ in runs) for n in KERNELS}
+    out["backward_launches"] = out["train"]["backward_launches"]
     out["launches_by_route"] = {n: {k: sum(rt[n][k] for _, rt in runs) for k in rs}
                                 for n, rs in runs[0][1].items()}
     for name, by_route in out["launches_by_route"].items():
@@ -2659,12 +2918,23 @@ def phase_mesh(cfgs, dev, seed, dryrun, tracked_wall_s, card) -> dict:
     return out
 
 
-def kernels_line(cfgs, checks, paths, routes, trained, grads) -> dict:
+def kernels_line(cfgs, checks, paths, routes, trained, grads, bwd_paths) -> dict:
     """``paths``: each main path's launch counts, by phase; ``routes``: the
     same per route, for the kernels that have routes; ``trained`` and
     ``grads``: the train_tinyllama and train_grads results (each kernel's
-    training launches and its backward's time)."""
+    training launches and its backward's time); ``bwd_paths``: each training
+    phase's backward kernel launches."""
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
+    bwd_launches = {n: sum(p[n] for p in bwd_paths.values()) for n in BWD_SOURCES}
+    fb, sb = checks["flash_attention_bwd"][0], checks["ssd_scan_bwd"][0]
+
+    def backward(name, rec, unit, extra) -> dict:
+        return {"source": f"src/repro_torch/csrc/{BWD_SOURCES[name]}.cu", "route": "cuda",
+                "launches": bwd_launches[name],
+                "launches_by_path": {k: p[name] for k, p in bwd_paths.items()},
+                **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")}, "unit": unit, **extra}
+
     by_route = {n: {r: sum(p[n][r] for p in routes.values()) for r in rs}
                 for n, rs in next(iter(routes.values())).items()}
     mm = {(r["M"], r["K"], r["N"]): r for r in checks["ltrf_matmul"] if r["dtype"] == "bfloat16"}
@@ -2728,7 +2998,16 @@ def kernels_line(cfgs, checks, paths, routes, trained, grads) -> dict:
          "launches_by_path": {k: p["flash_attention"] for k, p in paths.items()},
          "training": {"launches_per_step": trained["launches_per_step"]["flash_attention"],
                       "launches_by_route": trained["launches_by_route"]["flash_attention"],
-                      "backward": "plain recompute (flash_vjp)", **trained["flash_backward"]}},
+                      "backward": backward(
+                          "flash_attention", fb,
+                          f"one call (three launches) at B={fb['B']}, H={fb['H']}, KV={fb['KV']}, "
+                          f"S={fb['S']}, d={fb['d']}, bf16, causal; library: SDPA forward + "
+                          "backward", {"launches_by_route": {
+                              r: sum(p["flash_attention_by_route"][r] for p in bwd_paths.values())
+                              for r in flash_ops.BWD_ROUTES.values()}}),
+                      "train_shape_check": trained["flash_train_shape"],
+                      "backward_ms_per_step": (trained["flash_train_shape"]["layers_per_step"]
+                                               * fb["eager_ms"])}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:61",
@@ -2745,7 +3024,11 @@ def kernels_line(cfgs, checks, paths, routes, trained, grads) -> dict:
                        **{k: ssd_hybrid[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                      "bound_tc_ms", "max_abs_err")}},
          "launches_by_path": {k: p["ssd_scan"] for k, p in paths.items()},
-         "training": {"backward": "plain recompute (ssd_chunk_vjp)", **grads["ssd_backward"]}},
+         "training": {"backward": backward(
+             "ssd_scan", sb, f"one launch at B={sb['B']}, S={sb['S']}, H={sb['H']}, P={sb['P']}, "
+             f"N={sb['N']}, Q={sb['Q']}, fp32 ({SSM_ARCH}'s train shape)",
+             {"library_note": "no single PyTorch call computes it"}),
+             "train_grads_timing": grads["ssd_backward"]}},
     ]}
 
 
@@ -2814,10 +3097,18 @@ def main() -> int:
             results["device"]["nvidia_smi"])
         paths["mesh"] = results["mesh"]["launches"]
         routes["mesh"] = results["mesh"]["launches_by_route"]
+        bwd_paths = {name: results[name]["backward_launches"] for name in
+                     ("train_tinyllama", "train_replay", "train_grads", "mesh")}
+        for name, got in bwd_paths.items():
+            check(got["flash_attention"] + got["ssd_scan"] > 0,
+                  f"{name} launched no backward kernel: {got}")
         line = kernels_line(cfgs, results["kernel_checks"], paths, routes,
-                            results["train_tinyllama"], results["train_grads"])
+                            results["train_tinyllama"], results["train_grads"], bwd_paths)
         for k in line["kernels"]:
             check(k["launches"] > 0, f"{k['name']} never launched on the main path")
+            if k["name"] in BWD_SOURCES:
+                check(k["training"]["backward"]["launches"] > 0,
+                      f"{k['name']}'s backward never launched on the training paths")
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(

@@ -39,6 +39,10 @@
 // bound, 19 % (the split P adds half again to the products the bound
 // counts; scaled_dot_product_attention takes 0.037 ms).
 //
+// Both routes write the fp32 row log-sum-exp of the scaled, masked scores
+// (m + log l) when given an `lse` pointer, for the backward kernel
+// (flash_attention_bwd.cu); with a null pointer nothing else changes.
+//
 // fp32: the first version's kernel.  One CTA (128 threads) owns a 64-row
 // query block and loops over 64-row KV blocks in fp32 on the CUDA cores (67
 // TFLOP/s), so that no fp32 result goes through TF32 or bf16.
@@ -80,7 +84,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fp32(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int S, int group, int causal, float scale) {
+                     float* __restrict__ lse, int S, int group, int causal, float scale) {
   constexpr int LD = D + 1;    // padded rows: conflict-free column reads
   constexpr int LDP = BKV + 1;
   constexpr int DJ = D / 8;
@@ -192,19 +196,20 @@ flash_attention_fp32(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j) ob[(size_t)qp * D + tx + 8 * j] = acc[i][j] / denom;
+    if (lse && tx == 0) lse[(size_t)bh * S + qp] = m[i] + logf(denom);
   }
 }
 
 template <int D>
-cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o, int BH, int S,
-                        int group, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int BH, int S, int group, int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = allow_smem<flash_attention_fp32<D>>();
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, BH);
   flash_attention_fp32<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, group, causal, scale);
+      static_cast<float*>(o), lse, S, group, causal, scale);
   return cudaGetLastError();
 }
 
@@ -244,8 +249,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      const __grid_constant__ CUtensorMap to, int S, int group, int causal,
-                      float scale_log2) {
+                      const __grid_constant__ CUtensorMap to, float* __restrict__ lse, int S,
+                      int group, int causal, float scale_log2) {
   using L = WgLayout<D>;
   constexpr int SW = L::kSw;
   extern __shared__ unsigned char smem_raw[];
@@ -427,6 +432,10 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       denom[r] = fmaxf(l[r], 1e-30f);
+      // ln-sum-exp of the scaled scores: m is the raw row max
+      if (lse && lane % 4 == 0 && row_lo + 8 * r < S)
+        lse[(size_t)bh * S + row_lo + 8 * r] = m[r] * scale_log2 * 0.6931471805599453f +
+                                               logf(denom[r]);
     }
     // the output goes through this warpgroup's rows of the Q tile (its last
     // reader was this warpgroup's last S product), laid out and swizzled as
@@ -454,8 +463,9 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int D>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int BH, int S,
-                         int group, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int BH, int S, int group, int causal, float scale,
+                         cudaStream_t stream) {
   using L = WgLayout<D>;
   CUtensorMap tq, tk, tv, to;
   const cuuint64_t q_dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
@@ -473,17 +483,19 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   if (err != cudaSuccess) return err;
   const dim3 grid(BH, (S + kWgRows - 1) / kWgRows);
   flash_attention_wgmma<D><<<grid, kWgThreads, L::kSmem, stream>>>(
-      tq, tk, tv, to, S, group, causal,
+      tq, tk, tv, to, lse, S, group, causal,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, void* o, int BH,
-                     int S, int D, int group, int causal, float scale, cudaStream_t stream) {
-#define FLASH_CASE(d)                                                                   \
-  case d:                                                                               \
-    return dtype == 1 ? launch_wgmma<d>(q, k, v, o, BH, S, group, causal, scale, stream) \
-                      : launch_fp32<d>(q, k, v, o, BH, S, group, causal, scale, stream);
+cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, void* o,
+                     float* lse, int BH, int S, int D, int group, int causal, float scale,
+                     cudaStream_t stream) {
+#define FLASH_CASE(d)                                                                      \
+  case d:                                                                                  \
+    return dtype == 1                                                                      \
+               ? launch_wgmma<d>(q, k, v, o, lse, BH, S, group, causal, scale, stream)    \
+               : launch_fp32<d>(q, k, v, o, lse, BH, S, group, causal, scale, stream);
   switch (D) {
     FLASH_CASE(16)
     FLASH_CASE(32)
@@ -497,12 +509,13 @@ cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, voi
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (wgmma kernel).  head_dim
-// D in {16, 32, 64, 128}.  Returns the launch's cudaError_t (0 on success).
+// D in {16, 32, 64, 128}.  lse: null, or fp32 (BH, S) for the rows' log-sum-exp.
+// Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int BH, int S, int D, int group, int causal, int dtype,
-                                      float scale, void* stream) {
+                                      float scale, void* lse, void* stream) {
   if (BH <= 0 || S <= 0 || group <= 0 || BH % group != 0 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  return launch_d(dtype, q, k, v, o, BH, S, D, group, causal, scale,
+  return launch_d(dtype, q, k, v, o, static_cast<float*>(lse), BH, S, D, group, causal, scale,
                   static_cast<cudaStream_t>(stream));
 }

@@ -10,11 +10,16 @@ cores).  ``flash_attention.launches`` counts the launches and
 ``flash_attention.launches_by_route`` counts them per route.
 
 Gradients: where grad is enabled and q, k or v requires it, the call runs
-inside ``FlashAttentionFn``, whose forward launches the kernel and whose
-backward (``flash_vjp``) recomputes the plain version under autograd on
-detached inputs and returns its gradients: the GQA group sum and the causal
-mask come with it.  The JAX package has no backward kernel either (it
-differentiates XLA einsums); a Hopper backward kernel is later work.
+inside ``FlashAttentionFn``, whose forward launches the kernel with its row
+log-sum-exp (LSE) written too, and whose backward is ``flash_bwd``: on CUDA
+tensors the hand-written backward kernel ``csrc/flash_attention_bwd.cu``
+(three launches: D = rowsum(dO o O), then dK and dV with the GQA group sum
+inside each CTA, then dQ; no float atomics, so two runs give the same bits),
+on CPU tensors its plain version ``ref.flash_bwd_ref``.  ``flash_bwd.launches``
+counts the backward calls that launched the kernel, ``flash_bwd.launches_by_route``
+the same per route (``"mma"`` for bf16: mma.sync on the tensor cores;
+``"fp32"``: CUDA cores).  The JAX package has no backward kernel (it
+differentiates XLA einsums).
 """
 from __future__ import annotations
 
@@ -24,11 +29,12 @@ import math
 import torch
 
 from .. import _build
-from .ref import attention_ref
+from .ref import attention_lse_ref, attention_ref, flash_bwd_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
+BWD_ROUTES = {torch.bfloat16: "mma", torch.float32: "fp32"}
 
 
 def _library():
@@ -36,6 +42,16 @@ def _library():
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_library():
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -47,71 +63,116 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differentiable."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal)
-    return _attend(q, k, v, causal)
-
-
-def flash_vjp(q, k, v, causal: bool, do):
-    """(dq, dk, dv): the plain version recomputed under autograd (its fp32
-    scores, B x H x S x S, live only for this call)."""
-    with torch.enable_grad():
-        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-        out = attention_ref(q, k, v, causal)
-        return torch.autograd.grad(out, (q, k, v), do)
+    return _attend(q, k, v, causal, with_lse=False)[0]
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """``flash_attention``: the kernel forward, the plain recompute backward."""
+    """``flash_attention``: the kernel forward (with its LSE), the kernel
+    backward (``flash_bwd``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        ctx.save_for_backward(q, k, v)
+        out, lse = _attend(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
-        return _attend(q, k, v, causal)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        return (*flash_vjp(*ctx.saved_tensors, ctx.causal, do), None)
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_bwd(q, k, v, out, lse, do, ctx.causal), None)
 
 
-def _attend(q, k, v, causal: bool) -> torch.Tensor:
-    """The plain version for CPU tensors, else one launch of the kernel."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return attention_ref(q, k, v, causal)
+def _check(q, k, v, what: str):
+    """Raise unless the kernels take q, k, v (on one CUDA device)."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention: q, k, v must all be on the CPU or "
-                         "on one CUDA device")
+        raise ValueError(f"{what}: q, k, v must all be on the CPU or on one CUDA device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}; need all float32 or all bfloat16")
+        raise TypeError(f"{what}: dtypes {q.dtype}, {k.dtype}, {v.dtype}; need all "
+                        "float32 or all bfloat16")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+        raise ValueError(f"{what}: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     B, H, S, d = q.shape
     KV = k.shape[1]
     if (k.shape[0], k.shape[2], k.shape[3]) != (B, S, d) or H % KV:
-        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not match "
-                         f"q {tuple(q.shape)} (need equal B, S, d; KV | H)")
+        raise ValueError(f"{what}: k/v {tuple(k.shape)} do not match q {tuple(q.shape)} "
+                         "(need equal B, S, d; KV | H)")
     if d not in HEAD_DIMS or S == 0:
-        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS} "
-                         f"or empty sequence")
+        raise ValueError(f"{what}: head_dim {d} not in {HEAD_DIMS} or empty sequence")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
+        raise ValueError(f"{what}: q, k, v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
+        raise ValueError(f"{what}: q, k, v must be 16-byte aligned")
+
+
+def _attend(q, k, v, causal: bool, with_lse: bool):
+    """(output, fp32 LSE (B, H, S) or None): the plain version for CPU
+    tensors, else one launch of the kernel (which writes the LSE only when
+    asked; the output's bits do not depend on it)."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return attention_lse_ref(q, k, v, causal) if with_lse else (attention_ref(q, k, v, causal),
+                                                                     None)
+    _check(q, k, v, "flash_attention")
+    B, H, S, d = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if with_lse else None
     launch = _library()
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     B * H, S, d, H // KV, int(causal), _DTYPES[q.dtype],
-                     1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+                     B * H, S, d, H // k.shape[1], int(causal), _DTYPES[q.dtype],
+                     1.0 / math.sqrt(d), None if lse is None else lse.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     flash_attention.launches += 1
     flash_attention.launches_by_route[ROUTES[q.dtype]] += 1
-    return out
+    return out, lse
+
+
+def flash_bwd(q, k, v, o, lse, do, causal: bool):
+    """(dq, dk, dv), each in its input's dtype, for output gradient ``do``,
+    from the forward's output ``o`` and fp32 LSE (B, H, S): the plain
+    version (``flash_bwd_ref``) for CPU tensors, else the backward kernel
+    (its three launches count once); anything it does not take raises."""
+    if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):
+        return flash_bwd_ref(q, k, v, o, lse, do, causal)
+    _check(q, k, v, "flash_bwd")
+    do = do.contiguous()
+    B, H, S, d = q.shape
+    if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
+            or do.dtype != q.dtype or tuple(lse.shape) != (B, H, S)
+            or lse.dtype != torch.float32 or not (o.is_contiguous() and lse.is_contiguous())
+            or any(t.device != q.device for t in (o, lse, do))):
+        raise ValueError(f"flash_bwd: o {tuple(o.shape)} {o.dtype}, lse {tuple(lse.shape)} "
+                         f"{lse.dtype}, do {tuple(do.shape)} {do.dtype} do not match q "
+                         f"{tuple(q.shape)} {q.dtype} (need o, do like q, lse fp32 (B, H, S), "
+                         "contiguous, on q's device)")
+    if any(t.data_ptr() % 16 for t in (o, do)):
+        raise ValueError("flash_bwd: o and do must be 16-byte aligned")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    launch = _bwd_library()
+    with torch.cuda.device(q.device):
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                     do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     delta.data_ptr(), B * H, S, d, H // k.shape[1], int(causal),
+                     _DTYPES[q.dtype], 1.0 / math.sqrt(d),
+                     torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: cudaError {err}")
+    _FLASH_BWD.launches += 1
+    _FLASH_BWD.launches_by_route[BWD_ROUTES[q.dtype]] += 1
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES.values(), 0)
+# the counts live on the wrapper, reached by a name of its own, so that they
+# count on while a test patches the module's ``flash_bwd``
+_FLASH_BWD = flash_bwd
+flash_bwd.launches = 0
+flash_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES.values(), 0)
 
-__all__ = ["FlashAttentionFn", "attention_ref", "flash_attention", "flash_vjp"]
+__all__ = ["FlashAttentionFn", "attention_lse_ref", "attention_ref", "flash_attention",
+           "flash_bwd", "flash_bwd_ref"]

@@ -16,10 +16,16 @@ launches.
 
 Gradients: where grad is enabled and an input requires it, ``ssd_chunk``
 runs inside ``SsdChunkFn``, whose forward launches the kernel and whose
-backward (``ssd_chunk_vjp``) recomputes ``ssd_chunk_ref`` under autograd on
-the detached inputs (in their own dtypes, so each gradient comes back in its
-input's dtype); an output with no gradient counts as zeros.  The recurrence
-``chunk_carry`` and the ``y_inter`` product stay plain autograd.
+backward is ``ssd_chunk_bwd``: on CUDA tensors the hand-written backward
+kernel ``csrc/ssd_scan_bwd.cu`` (fp32 FFMA, one CTA per (b, chunk, group of
+``BWD_HEADS`` heads), on CPU tensors its plain version
+``ref.ssd_chunk_bwd_ref``; each gradient comes back in its input's dtype and
+an output with no gradient counts as zeros.  The kernel sums dB and dC over
+its CTA's heads and writes one partial per head group, and dA per (b, chunk,
+head); the wrapper sums those partials with ``torch.sum`` (a fixed order: no
+float atomics, so two runs give the same bits).  ``ssd_chunk_bwd.launches``
+counts its launches.  The recurrence ``chunk_carry`` and the ``y_inter``
+product stay plain autograd.
 """
 from __future__ import annotations
 
@@ -29,10 +35,12 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .ref import chunk_carry, ssd_chunk_ref, ssd_ref
+from .ref import chunk_carry, ssd_chunk_bwd_ref, ssd_chunk_ref, ssd_ref
 
 MAX_CHUNK = 256
 MAX_DIM = 128          # P and N
+BWD_HEADS = 4          # heads of one backward CTA
+BWD_BLOCK = 64         # rows of the backward's i- and j-blocks
 
 
 def _library():
@@ -40,6 +48,15 @@ def _library():
     fn = lib.ssd_chunk_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_library():
+    lib = _build.load("ssd_scan_bwd")
+    fn = lib.ssd_chunk_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -55,20 +72,8 @@ def ssd_chunk(x, dt, A, Bm, Cm, chunk: int):
     return _chunk(*ins, chunk)
 
 
-def ssd_chunk_vjp(ins, chunk: int, grads):
-    """Gradients of (x, dt, A, Bm, Cm) for the four outputs' gradients
-    ``grads`` (None where an output has none): ``ssd_chunk_ref`` recomputed
-    under autograd on the detached inputs."""
-    pairs = [i for i, g in enumerate(grads) if g is not None]
-    with torch.enable_grad():
-        ins = [t.detach().requires_grad_() for t in ins]
-        outs = ssd_chunk_ref(*ins, chunk)
-        return torch.autograd.grad([outs[i] for i in pairs], ins,
-                                   [grads[i] for i in pairs], allow_unused=True)
-
-
 class SsdChunkFn(torch.autograd.Function):
-    """``ssd_chunk``: the kernel forward, the plain recompute backward."""
+    """``ssd_chunk``: the kernel forward, the kernel backward (``ssd_chunk_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk):
@@ -79,7 +84,36 @@ class SsdChunkFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        return (*ssd_chunk_vjp(ctx.saved_tensors, ctx.chunk, grads), None)
+        return (*ssd_chunk_bwd(ctx.saved_tensors, ctx.chunk, grads), None)
+
+
+def _check(ins, chunk: int, what: str):
+    """The inputs in fp32, checked: raise unless the kernels take them."""
+    x = ins[0]
+    if x.device.type != "cuda" or any(t.device != x.device for t in ins):
+        raise ValueError(f"{what}: x, dt, A, Bm, Cm must all be on the CPU or on one "
+                         "CUDA device")
+    if any(t.dtype not in (torch.float32, torch.bfloat16) for t in ins):
+        raise TypeError(f"{what}: dtypes {[t.dtype for t in ins]}; need float32 or bfloat16")
+    x, dt, A, Bm, Cm = (t.float() for t in ins)
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3:
+        raise ValueError(f"{what}: shapes {[tuple(t.shape) for t in ins]}")
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if (tuple(dt.shape) != (Bsz, S, H) or tuple(A.shape) != (H,)
+            or tuple(Bm.shape) != (Bsz, S, N) or Cm.shape != Bm.shape):
+        raise ValueError(f"{what}: shapes {[tuple(t.shape) for t in ins]} do not match "
+                         "x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N)")
+    if not (0 < chunk <= MAX_CHUNK and 0 < P <= MAX_DIM and 0 < N <= MAX_DIM
+            and P % 4 == 0 and N % 4 == 0 and S > 0):
+        raise ValueError(f"{what}: chunk {chunk}, P {P}, N {N}, S {S}: the kernels take "
+                         f"chunk <= {MAX_CHUNK}, P and N multiples of 4 up to {MAX_DIM}, "
+                         "S > 0")
+    if not all(t.is_contiguous() for t in (x, dt, A, Bm, Cm)):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (x, Bm, Cm)):
+        raise ValueError(f"{what}: x, Bm, Cm must be 16-byte aligned")
+    return x, dt, A, Bm, Cm
 
 
 def _chunk(x, dt, A, Bm, Cm, chunk: int):
@@ -87,30 +121,9 @@ def _chunk(x, dt, A, Bm, Cm, chunk: int):
     ins = (x, dt, A, Bm, Cm)
     if all(t.device.type == "cpu" for t in ins):
         return ssd_chunk_ref(x, dt, A, Bm, Cm, chunk)
-    if x.device.type != "cuda" or any(t.device != x.device for t in ins):
-        raise ValueError("ssd_chunk: x, dt, A, Bm, Cm must all be on the CPU or "
-                         "on one CUDA device")
-    if any(t.dtype not in (torch.float32, torch.bfloat16) for t in ins):
-        raise TypeError(f"ssd_chunk: dtypes {[t.dtype for t in ins]}; need float32 "
-                        "or bfloat16")
-    x, dt, A, Bm, Cm = (t.float() for t in ins)
-    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3:
-        raise ValueError(f"ssd_chunk: shapes {[tuple(t.shape) for t in ins]}")
+    x, dt, A, Bm, Cm = _check(ins, chunk, "ssd_chunk")
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
-    if (tuple(dt.shape) != (Bsz, S, H) or tuple(A.shape) != (H,)
-            or tuple(Bm.shape) != (Bsz, S, N) or Cm.shape != Bm.shape):
-        raise ValueError(f"ssd_chunk: shapes {[tuple(t.shape) for t in ins]} do not "
-                         "match x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N)")
-    if not (0 < chunk <= MAX_CHUNK and 0 < P <= MAX_DIM and 0 < N <= MAX_DIM
-            and P % 4 == 0 and N % 4 == 0 and S > 0):
-        raise ValueError(f"ssd_chunk: chunk {chunk}, P {P}, N {N}, S {S}: the kernel "
-                         f"takes chunk <= {MAX_CHUNK}, P and N multiples of 4 up to "
-                         f"{MAX_DIM}, S > 0")
-    if not all(t.is_contiguous() for t in (x, dt, A, Bm, Cm)):
-        raise ValueError("ssd_chunk: inputs must be contiguous")
-    if any(t.data_ptr() % 16 for t in (x, Bm, Cm)):
-        raise ValueError("ssd_chunk: x, Bm, Cm must be 16-byte aligned")
     nc = -(-S // chunk)
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((Bsz, nc, H, chunk, P), **f32)
@@ -127,6 +140,49 @@ def _chunk(x, dt, A, Bm, Cm, chunk: int):
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     ssd_scan.launches += 1
     return y, states, in_decay, chunk_decay
+
+
+def ssd_chunk_bwd(ins, chunk: int, grads):
+    """Gradients of (x, dt, A, Bm, Cm), each in its input's dtype, for the
+    four outputs' gradients ``grads`` (None where an output has none): the
+    plain version (``ssd_chunk_bwd_ref``) for CPU tensors, else one launch
+    of the backward kernel; anything it does not take raises."""
+    given = [g for g in grads if g is not None]
+    if all(t.device.type == "cpu" for t in (*ins, *given)):
+        return ssd_chunk_bwd_ref(*ins, chunk, grads)
+    x, dt, A, Bm, Cm = _check(ins, chunk, "ssd_chunk_bwd")
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = -(-S // chunk)
+    shapes = [(Bsz, nc, H, chunk, P), (Bsz, nc, H, P, N), (Bsz, nc, H, chunk), (Bsz, nc, H, 1)]
+    gs = []
+    for g, shape in zip(grads, shapes):
+        if g is not None:
+            if tuple(g.shape) != shape or g.device != x.device:
+                raise ValueError(f"ssd_chunk_bwd: an output gradient {tuple(g.shape)} on "
+                                 f"{g.device}, need {shape} on {x.device}")
+            g = g.float().contiguous()
+        gs.append(g)
+    groups = -(-H // BWD_HEADS)
+    blocks = -(-chunk // BWD_BLOCK)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    gx, gdt = torch.empty_like(x), torch.empty_like(dt)
+    gA = torch.empty((Bsz, nc, H), **f32)
+    gB, gC = (torch.empty((groups, Bsz, S, N), **f32) for _ in range(2))
+    # per CTA: C B^T and the head-summed dG of one j-block against every i-block
+    scratch = torch.empty((Bsz * nc * groups, 2, blocks, BWD_BLOCK, BWD_BLOCK), **f32)
+    launch = _bwd_library()
+    with torch.cuda.device(x.device):
+        err = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                     *(0 if g is None else g.data_ptr() for g in gs),
+                     gx.data_ptr(), gdt.data_ptr(), gA.data_ptr(), gB.data_ptr(),
+                     gC.data_ptr(), scratch.data_ptr(), Bsz, S, H, P, N, chunk, BWD_HEADS,
+                     torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_scan backward kernel launch failed: cudaError {err}")
+    _SSD_CHUNK_BWD.launches += 1
+    return (gx.to(ins[0].dtype), gdt.to(ins[1].dtype), gA.sum((0, 1)).to(ins[2].dtype),
+            gB.sum(0).to(ins[3].dtype), gC.sum(0).to(ins[4].dtype))
 
 
 def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 64):
@@ -150,5 +206,10 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 64):
 
 
 ssd_scan.launches = 0
+# the count lives on the wrapper, reached by a name of its own, so that it
+# counts on while a test patches the module's ``ssd_chunk_bwd``
+_SSD_CHUNK_BWD = ssd_chunk_bwd
+ssd_chunk_bwd.launches = 0
 
-__all__ = ["SsdChunkFn", "ssd_chunk", "ssd_chunk_ref", "ssd_chunk_vjp", "ssd_ref", "ssd_scan"]
+__all__ = ["SsdChunkFn", "ssd_chunk", "ssd_chunk_bwd", "ssd_chunk_bwd_ref", "ssd_chunk_ref",
+           "ssd_ref", "ssd_scan"]

@@ -52,6 +52,10 @@ MAMBA2_AXES = {"in_proj": ("embed", "ffn"), "conv": (None, "ffn"), "A_log": (Non
 
 
 def _split_proj(zxbcdt, d_inner, d_state):
+    """z, xBC and dt of the in_proj output.  A column-split DTensor is
+    gathered once here: DTensor would gather the whole tensor for each
+    slice."""
+    zxbcdt = sites.gather_last(zxbcdt)
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner:2 * d_inner + 2 * d_state]
     dt = zxbcdt[..., 2 * d_inner + 2 * d_state:]

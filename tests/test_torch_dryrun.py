@@ -323,3 +323,15 @@ def test_padded_head_bytes_are_reported_apart():
     rec = dryrun._trace_cell(cfg, TRAIN, mesh((2, 2)), False, "")
     assert rec["memory"]["argument_size_in_bytes"] == jax_argument_bytes(jcfg, TRAIN, (2, 2))
     assert rec["memory"]["head_padding_bytes"] == cfg.d_model // 2 * (256 - 250) // 2 * (2 + 4 + 4)
+
+
+@pytest.mark.usefixtures("fake_world")
+def test_split_proj_gathers_the_in_proj_output_once():
+    """One mamba2 block's forward on (2, 2): the column-split in_proj output
+    is gathered once where ``_split_proj`` slices it (DTensor gathers the
+    whole tensor for each slice of a split one: three gathers)."""
+    cfg = dataclasses.replace(get_smoke("mamba2-1.3b"), n_layers=1)
+    rec = dryrun._trace(cfg, ShapeConfig("p", 64, 4, "prefill"), mesh((2, 2)), 1)
+    gathers = {k: v for k, v in rec["collectives_by_source"].items()
+               if k.startswith("all-gather") and k.endswith(" _split_proj")}
+    assert sum(v["count"] for v in gathers.values()) == 1, gathers

@@ -12,8 +12,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke, smoke_shape  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_lse_ref, flash_bwd_ref  # noqa: E402
 from repro_torch.kernels.ltrf_matmul import ltrf_matmul, matmul_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_ref, ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_bwd_ref  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -370,8 +372,8 @@ GRAD_REL_L2 = {torch.float32: {"dense": 1e-4, "moe": 1e-4, "ssm": 2e-3, "hybrid"
                torch.bfloat16: {"dense": 5e-2, "moe": 5e-2, "ssm": 5e-2, "hybrid": 5e-2}}
 
 _real_matmul_vjp = mm_ops.matmul_vjp
-_real_flash_vjp = flash_ops.flash_vjp
-_real_ssd_vjp = ssd_ops.ssd_chunk_vjp
+_real_flash_bwd = flash_ops.flash_bwd
+_real_ssd_bwd = ssd_ops.ssd_chunk_bwd
 
 
 def _dw_zeroed(x, w, dy, needs):
@@ -383,9 +385,10 @@ def _dw_zeroed(x, w, dy, needs):
 # attribute, replacement), and the faults each family's backward can reach
 GRAD_FAULTS = {
     "matmul_dw_zeroed": (mm_ops, "matmul_vjp", _dw_zeroed),
-    "flash_not_causal": (flash_ops, "flash_vjp",
-                         lambda q, k, v, causal, do: _real_flash_vjp(q, k, v, False, do)),
-    "ssd_in_decay_dropped": (ssd_ops, "ssd_chunk_vjp", lambda ins, chunk, g: _real_ssd_vjp(
+    "flash_not_causal": (flash_ops, "flash_bwd", lambda q, k, v, o, lse, do, causal:
+                         _real_flash_bwd(q, k, v, *flash_ops._attend(q, k, v, False, True), do,
+                                         False)),
+    "ssd_in_decay_dropped": (ssd_ops, "ssd_chunk_bwd", lambda ins, chunk, g: _real_ssd_bwd(
         ins, chunk, (g[0], g[1], None, g[3]))),
 }
 FAMILY_FAULTS = {"dense": ("matmul_dw_zeroed", "flash_not_causal"),
@@ -510,6 +513,166 @@ def test_every_kernel_output_carries_a_backward(dev):
     assert flash_attention(q, kv, kv).grad_fn is not None
     ins = [t.requires_grad_() for t in _ssd_inputs(1, 64, 4, 16, 16, dev)]
     assert all(o.grad_fn is not None for o in ssd_chunk(*ins, 32))
+
+
+# ------------------------------------------------ the backward kernels
+
+# flash's backward kernel against flash_bwd_ref on the same inputs, O and
+# LSE from the kernel forward, per gradient as a relative L2: in fp32 (CUDA
+# cores) sum order only; in bf16 the kernel rounds P and dS once to bf16
+# before its products (emulated on the CPU at the train shape: 2.4e-3 against
+# an fp32 backward) and each gradient to bf16 at the end
+FLASH_BWD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# ssd_scan's backward kernel (fp32 FFMA) against ssd_chunk_bwd_ref run in
+# float64, per gradient: dA sums a reverse cumsum whose terms cancel (with
+# only the states' gradient its first entry is 0 in exact arithmetic), so an
+# fp32 plain version is itself ~1e-4 off there
+SSD_BWD_REL_L2 = 1e-4
+
+
+def _ssd_bwd_f64(ins, Q, grads):
+    """ssd_chunk_bwd_ref in float64 on the same inputs and gradients."""
+    return ssd_chunk_bwd_ref(*(t.double() for t in ins), Q,
+                             tuple(None if g is None else g.double() for g in grads))
+
+
+def _flash_bwd_inputs(dev, B, H, KV, S, d, causal, dtype, seed=3):
+    g = torch.Generator(dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, n, S, d, device=dev, generator=g).to(dtype) for n in (H, KV, KV))
+    do = torch.randn(B, H, S, d, device=dev, generator=g).to(dtype)
+    o, lse = flash_ops._attend(q, k, v, causal, with_lse=True)
+    return q, k, v, o, lse, do
+
+
+def _rel_l2s(got, want) -> list:
+    return [float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (8, 1)], ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("S", [3, 77, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_backward_matches_plain(dev, d, S, heads, causal, dtype):
+    H, KV = heads
+    q, k, v, o, lse, do = _flash_bwd_inputs(dev, 2, H, KV, S, d, causal, dtype)
+    _, want_lse = attention_lse_ref(q, k, v, causal)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    before = flash_ops.flash_bwd.launches
+    got = flash_ops.flash_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_bwd.launches == before + 1
+    assert [g.dtype for g in got] == [dtype] * 3
+    errs = _rel_l2s(got, flash_bwd_ref(q, k, v, o, lse, do, causal))
+    assert max(errs) <= FLASH_BWD_REL_L2[dtype], errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_checks_fail_planted_faults(dev, dtype):
+    """A non-causal backward, the GQA group sum dropped and D dropped (O
+    read as zeros) each read above the limit."""
+    q, k, v, o, lse, do = _flash_bwd_inputs(dev, 2, 8, 2, 200, 64, True, dtype)
+    want = flash_bwd_ref(q, k, v, o, lse, do, True)
+    rep = q.shape[1] // k.shape[1]
+    dq, dke, dve = flash_ops.flash_bwd(q, *(t.repeat_interleave(rep, 1) for t in (k, v)), o, lse,
+                                       do, True)
+    faults = {"not_causal": flash_ops.flash_bwd(
+                  q, k, v, *flash_ops._attend(q, k, v, False, True), do, False),
+              "group_sum_dropped": (dq, dke[:, ::rep] * rep, dve[:, ::rep] * rep),
+              "delta_dropped": flash_ops.flash_bwd(q, k, v, torch.zeros_like(o), lse, do, True)}
+    for name, got in faults.items():
+        assert max(_rel_l2s(got, want)) > FLASH_BWD_REL_L2[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_gives_the_same_bits_twice(dev, dtype):
+    ins = _flash_bwd_inputs(dev, 2, 32, 4, 1024, 64, True, dtype)
+    a, b = flash_ops.flash_bwd(*ins, True), flash_ops.flash_bwd(*ins, True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_lse_leaves_the_output_bits(dev):
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, o, _, _ = _flash_bwd_inputs(dev, 2, 8, 2, 300, 64, True, dtype)
+        assert torch.equal(o, flash_ops._attend(q, k, v, True, with_lse=False)[0])
+
+
+def _ssd_grads(outs, dev, seed, used=(0, 1, 2, 3)):
+    g = torch.Generator(dev).manual_seed(seed)
+    return tuple(torch.randn(o.shape, device=dev, generator=g) if i in used else None
+                 for i, o in enumerate(outs))
+
+
+@pytest.mark.parametrize("used", [(0, 1, 2, 3), (0,), (1,), (2, 3), (0, 1, 3)],
+                         ids=["all", "y", "states", "decays", "no_in_decay"])
+@pytest.mark.parametrize("shape", [(2, 1024, 8, 64, 128, 256), (1, 1000, 5, 64, 128, 256),
+                                   (2, 1024, 4, 64, 64, 256), (2, 300, 3, 16, 16, 96),
+                                   (1, 77, 2, 8, 12, 32), (1, 40, 2, 4, 4, 16),
+                                   (1, 130, 2, 128, 128, 64), (1, 200, 6, 128, 32, 200)])
+def test_ssd_backward_matches_plain(dev, shape, used):
+    B, S, H, P, N, Q = shape
+    ins = _ssd_inputs(B, S, H, P, N, dev)
+    grads = _ssd_grads(ssd_chunk(*ins, Q), dev, 7, used)
+    before = ssd_ops.ssd_chunk_bwd.launches
+    got = ssd_ops.ssd_chunk_bwd(ins, Q, grads)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_chunk_bwd.launches == before + 1
+    want = _ssd_bwd_f64(ins, Q, grads)
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        if b.norm() == 0:
+            assert not a.any(), name
+        else:
+            assert _rel_l2s([a], [b])[0] <= SSD_BWD_REL_L2, (name, _rel_l2s([a], [b]))
+
+
+def test_ssd_backward_check_fails_a_dropped_in_decay_gradient(dev):
+    ins = _ssd_inputs(2, 1024, 8, 64, 128, dev)
+    grads = _ssd_grads(ssd_chunk(*ins, 256), dev, 7)
+    want = _ssd_bwd_f64(ins, 256, grads)
+    got = ssd_ops.ssd_chunk_bwd(ins, 256, (grads[0], grads[1], None, grads[3]))
+    assert max(_rel_l2s(got, want)) > SSD_BWD_REL_L2
+
+
+def test_ssd_backward_gives_the_same_bits_twice(dev):
+    ins = _ssd_inputs(2, 1024, 64, 64, 128, dev)
+    grads = _ssd_grads(ssd_chunk(*ins, 256), dev, 7)
+    a, b = ssd_ops.ssd_chunk_bwd(ins, 256, grads), ssd_ops.ssd_chunk_bwd(ins, 256, grads)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q, k, v, o, lse, do = _flash_bwd_inputs(dev, 1, 2, 1, 16, 32, True, torch.float32)
+    with pytest.raises(ValueError):
+        flash_ops.flash_bwd(q, k, v, o, lse[..., :8], do, True)       # LSE of other rows
+    with pytest.raises(ValueError):
+        flash_ops.flash_bwd(q, k, v, o.bfloat16(), lse, do, True)     # O in another dtype
+    with pytest.raises(ValueError):
+        flash_ops.flash_bwd(q, k, v, o, lse, do.cpu(), True)          # dO off the card
+    q48 = torch.randn(1, 2, 16, 48, device=dev)                        # head_dim 48 not built
+    with pytest.raises(ValueError):
+        flash_ops.flash_bwd(q48, q48, q48, q48, lse, q48, True)
+    ins = _ssd_inputs(1, 64, 2, 8, 16, dev)
+    grads = _ssd_grads(ssd_chunk(*ins, 32), dev, 1)
+    with pytest.raises(ValueError):
+        ssd_ops.ssd_chunk_bwd(ins, 512, grads)                        # chunk > 256
+    with pytest.raises(ValueError):
+        ssd_ops.ssd_chunk_bwd(ins, 16, grads)                         # gradients of other chunks
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_chunk_bwd([t.half() for t in ins], 32, grads)
+
+
+def test_train_backward_launches_the_kernels(dev):
+    """A smoke model's gradient on the card launches both backward kernels
+    (flash's on its route) and no plain backward."""
+    for arch, kern in (("tinyllama-1.1b", flash_ops.flash_bwd),
+                       ("mamba2-1.3b", ssd_ops.ssd_chunk_bwd)):
+        cfg = dataclasses.replace(get_smoke(arch), dtype="bfloat16")
+        params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+        before = kern.launches
+        grads_of(cfg, params, _train_batch(cfg, dev))
+        assert kern.launches - before == cfg.n_layers, arch
 
 
 # ------------------------------------------------ the batch simulator on the card

@@ -247,7 +247,7 @@ def test_bf16x3_keeps_the_kernel_within_the_ssd_limits():
 
 
 # ---------------------------------------------------------------------------
-# the autograd Function (backward: ssd_chunk_ref recomputed)
+# the autograd Function (backward: ssd_chunk_bwd, its plain version on the CPU)
 # ---------------------------------------------------------------------------
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
@@ -276,11 +276,13 @@ def test_chunk_function_matches_plain_autograd(used):
             for i, s in enumerate(out_shapes(*shape, 16))]
     got = _chunk_grads(ssd_chunk, arrays, 16, cots)
     want = _chunk_grads(ssd_chunk_ref, arrays, 16, cots)
+    # the backward's explicit formulas (ssd_chunk_bwd_ref) against autograd
+    # of the plain forward: fp32 sum order only
     for a, b in zip(got, want):
         if b is None:
             assert a is None or not a.any()
         else:
-            torch.testing.assert_close(a, b, rtol=0, atol=0)
+            assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 1e-5
 
 
 def test_scan_grads_match_jax_recurrence():
@@ -307,8 +309,8 @@ def test_chunk_function_check_catches_a_dropped_in_decay_gradient(monkeypatch):
         return [t.grad for t in ins]
 
     want = grads()
-    real = ssd_ops.ssd_chunk_vjp
-    monkeypatch.setattr(ssd_ops, "ssd_chunk_vjp", lambda ins, chunk, g: real(
+    real = ssd_ops.ssd_chunk_bwd
+    monkeypatch.setattr(ssd_ops, "ssd_chunk_bwd", lambda ins, chunk, g: real(
         ins, chunk, (g[0], g[1], None, g[3])))
     got = grads()
     assert not all(torch.allclose(a, b, **FP32) for a, b in zip(got, want))

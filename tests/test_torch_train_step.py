@@ -136,32 +136,28 @@ def _dw_zeroed(x, w, dy, needs):
     return dx, None if dw is None else torch.zeros_like(dw)
 
 
-def _not_causal(q, k, v, causal, do):
-    return flash_ops._flash_vjp(q, k, v, False, do)
+def _not_causal(q, k, v, o, lse, do, causal):
+    return flash_ops._flash_bwd(q, k, v, o, lse, do, False)
 
 
-def _group_sum_dropped(q, k, v, causal, do):
+def _group_sum_dropped(q, k, v, o, lse, do, causal):
     """dk, dv of the first query head of each group only, not the group's sum."""
     rep = q.shape[1] // k.shape[1]
-    with torch.enable_grad():
-        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
-        ke = kd.repeat_interleave(rep, dim=1).detach().requires_grad_()
-        ve = vd.repeat_interleave(rep, dim=1).detach().requires_grad_()
-        out = flash_ops.attention_ref(qd, ke, ve, causal)
-        dq, dke, dve = torch.autograd.grad(out, (qd, ke, ve), do)
+    dq, dke, dve = flash_ops._flash_bwd(q, *(t.repeat_interleave(rep, dim=1) for t in (k, v)),
+                                        o, lse, do, causal)
     return dq, dke[:, ::rep] * rep, dve[:, ::rep] * rep
 
 
 def _in_decay_dropped(ins, chunk, grads):
-    return ssd_ops._ssd_vjp(ins, chunk, (grads[0], grads[1], None, grads[3]))
+    return ssd_ops._ssd_bwd(ins, chunk, (grads[0], grads[1], None, grads[3]))
 
 
 # planted faults in the kernel Functions' backward: (arch, module, name, fault)
 GRAD_FAULTS = {
     "matmul_dw_zeroed": ("tinyllama-1.1b", mm_ops, "matmul_vjp", _dw_zeroed),
-    "flash_not_causal": ("tinyllama-1.1b", flash_ops, "flash_vjp", _not_causal),
-    "flash_group_sum_dropped": ("tinyllama-1.1b", flash_ops, "flash_vjp", _group_sum_dropped),
-    "ssd_in_decay_dropped": ("mamba2-1.3b", ssd_ops, "ssd_chunk_vjp", _in_decay_dropped),
+    "flash_not_causal": ("tinyllama-1.1b", flash_ops, "flash_bwd", _not_causal),
+    "flash_group_sum_dropped": ("tinyllama-1.1b", flash_ops, "flash_bwd", _group_sum_dropped),
+    "ssd_in_decay_dropped": ("mamba2-1.3b", ssd_ops, "ssd_chunk_bwd", _in_decay_dropped),
 }
 
 
@@ -169,8 +165,8 @@ GRAD_FAULTS = {
 def sound_vjps(monkeypatch):
     """The sound backward functions under private names, for the faults."""
     monkeypatch.setattr(mm_ops, "_ltrf_vjp", mm_ops.matmul_vjp, raising=False)
-    monkeypatch.setattr(flash_ops, "_flash_vjp", flash_ops.flash_vjp, raising=False)
-    monkeypatch.setattr(ssd_ops, "_ssd_vjp", ssd_ops.ssd_chunk_vjp, raising=False)
+    monkeypatch.setattr(flash_ops, "_flash_bwd", flash_ops.flash_bwd, raising=False)
+    monkeypatch.setattr(ssd_ops, "_ssd_bwd", ssd_ops.ssd_chunk_bwd, raising=False)
 
 
 @pytest.mark.parametrize("fault", GRAD_FAULTS)
