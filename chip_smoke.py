@@ -9,7 +9,10 @@ exits non-zero; no phase's error is caught):
 1. device  -- ``nvidia-smi`` name and power limit.
 2. build   -- the three Hopper kernels and the two backward kernels
    (``flash_attention_bwd.cu``, ``ssd_scan_bwd.cu``) from
-   ``src/repro_torch/csrc`` (nvcc, in parallel) into ``build/kernels/``.
+   ``src/repro_torch/csrc`` (nvcc, in parallel) into ``build/kernels/``,
+   started here and each finished at its first use, so the compiles overlap
+   the first kernel checks; ``build_logs``, after the checks, records each
+   kernel's registers and spills.
 3. kernel_checks -- each kernel against its plain PyTorch version on the
    card, at the main paths' shapes (flash at tinyllama-1.1b's and
    zamba2-1.2b's): error, the per-CTA plan, and the median time of the
@@ -28,7 +31,9 @@ exits non-zero; no phase's error is caught):
    seeds more, dA to a limit of its own; a dropped in_decay gradient must
    fail); each gives the same
    bits twice and is timed beside its plain
-   version, its bound and (flash) SDPA's forward + backward.
+   version, its bound and (flash) SDPA's backward alone and its forward +
+   backward; ssd's also beside ``bound_tc_ms``, its work as the kernel does
+   it (3 bf16 tensor-core products each).
 4. prefill -- full-width tinyllama-1.1b ``loss_fn`` on B=2 x S=1024 tokens
    from the seed, on the kernel path; logits and loss held against the plain
    path on the card, and each layer's ``flash_attention`` call against its
@@ -86,7 +91,7 @@ exits non-zero; no phase's error is caught):
     flash launch on ``wgmma``; the loss of the first batch lower after the
     steps; two steps from one state give the same bits under
     ``torch.use_deterministic_algorithms``; one flash backward launch a
-    layer and step, on its ``mma`` route.  Also the backward's pieces timed
+    layer and step, on its ``wgmma`` route.  Also the backward's pieces timed
     at the step's shapes: ``matmul_vjp`` (two kernel products) per
     projection against cuBLAS; the flash forward there held against
     ``attention_ref`` and timed (its backward is kernel_checks' first flash
@@ -225,6 +230,7 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
+from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -551,14 +557,22 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
+BUILT = (*KERNELS, *BWD_SOURCES.values())
+
+
 def phase_build() -> dict:
-    names = (*KERNELS, *BWD_SOURCES.values())
-    logs = _build.build(names)
-    summary = {}
-    for name in names:
-        log = logs.get(name) or (_build.BUILD_DIR / f"{name}.log").read_text()
-        summary[name] = ptxas_summary(log)
-    return {"ptxas": summary}
+    """Start every source's nvcc at once and return: each library is put in
+    place at its first use (the kernel checks), so the compiles overlap the
+    checks that do not need them yet."""
+    _build.build(BUILT, wait=False)
+    return {"started": list(BUILT)}
+
+
+def phase_build_logs() -> dict:
+    """The compiles' ``-Xptxas -v`` summaries, once all are done."""
+    _build.build(BUILT)
+    return {"ptxas": {name: ptxas_summary((_build.BUILD_DIR / f"{name}.log").read_text())
+                      for name in BUILT}}
 
 
 def check_matmuls(cfgs, dev, gen) -> list:
@@ -731,12 +745,38 @@ def flash_bwd_bound(B, H, KV, S, d, causal, dtype) -> tuple[float, str]:
     return bound(nbytes, 10 * d * pairs, dtype)
 
 
+SDPA_REPS = 10       # eager calls a median takes, for the backward and its yardstick
+
+
+def sdpa_backward_ms(q, k, v, do) -> tuple[float, str]:
+    """SDPA's backward alone, the first PyTorch call that computes
+    ``flash_bwd``'s function: ``torch.autograd.grad`` of one causal forward,
+    eager, under the FLASH_ATTENTION backend (K and V repeated over the group
+    before the timed window if that backend refuses ``enable_gqa``); (median
+    ms, what ran)."""
+    qg = q.detach().requires_grad_()
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        try:
+            kg, vg = (t.detach().requires_grad_() for t in (k, v))
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+            how = "FLASH_ATTENTION backend, enable_gqa"
+        except RuntimeError:
+            rep = q.shape[1] // k.shape[1]
+            kg, vg = (t.repeat_interleave(rep, 1).detach().requires_grad_() for t in (k, v))
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            how = "FLASH_ATTENTION backend, K and V repeated over the group outside the timing"
+        ms = eager_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
+                      reps=SDPA_REPS)
+    return ms, f"scaled_dot_product_attention backward alone, bf16, eager ({how})"
+
+
 def check_flash_bwd(cfg, dev, gen) -> list:
     """flash's backward kernel (``flash_bwd``) at tinyllama's train shape and
     at each head dim with a ragged S, causal and not, in bf16 (held to
     SDPA's fp32 backward) and fp32 (held to ``flash_bwd_ref``); two launches
     give the same bits; at the train shape the planted faults must fail, and
-    the kernel, the plain version and SDPA's forward + backward are timed."""
+    the kernel, the plain version, SDPA's backward alone (``library_ms``) and
+    SDPA's forward + backward are timed."""
     res = []
     cases = [(TRAIN_B, cfg.n_heads, cfg.n_kv_heads, TRAIN_S, cfg.hd, True, torch.bfloat16)]
     cases += [(2, 8, 2, 1000, d, causal, dt) for d in flash_ops.HEAD_DIMS
@@ -771,8 +811,11 @@ def check_flash_bwd(cfg, dev, gen) -> list:
                 out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
                 torch.autograd.grad(out, (qg, kg, vg), do)
 
-            rec["library_ms"] = eager_ms(sdpa)
-            rec["library"] = "scaled_dot_product_attention forward + backward, bf16"
+            rec["library_fwd_bwd_ms"] = eager_ms(sdpa)
+            rec["library_ms"], rec["library"] = sdpa_backward_ms(q, k, v, do)
+            # the kernel timed the same way: one eager call between CUDA events
+            rec["kernel_eager_call_ms"] = eager_ms(lambda: flash_ops.flash_bwd(*ins, causal),
+                                                   reps=SDPA_REPS)
         del want, ins, q, k, v, o, lse, do
         free_memory()
         emit({"check": "flash_attention_bwd", **rec})
@@ -796,6 +839,16 @@ def ssd_bwd_bound(B, S, H, P, N, Q) -> tuple[float, str]:
     _, rows, tri = chunk_rows(S, Q)
     flops = B * (3 * 2 * N * tri + H * (2 * 2 * P * tri + 2 * 2 * P * N * rows))
     return bound(nbytes + in_bytes, flops, torch.float32)
+
+
+def ssd_bwd_bound_tc(B, S, H, P, N, Q) -> float:
+    """The backward's work as the kernel does it: each of its products (the
+    ones ``ssd_bwd_bound`` counts) as three bf16 tensor-core products
+    (bf16x3) at 989 TFLOP/s, or the bytes if they take longer."""
+    nbytes = ssd_work(B, S, H, P, N, Q)[0] + 4 * (B * S * H * P + B * S * H + H + 2 * B * S * N)
+    _, rows, tri = chunk_rows(S, Q)
+    flops = B * (3 * 2 * N * tri + H * (2 * 2 * P * tri + 2 * 2 * P * N * rows))
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, 3 * flops / PEAK_FLOPS[torch.bfloat16])
 
 
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
@@ -862,6 +915,7 @@ def check_ssd_bwd(dev, gen) -> list:
         rec["plain_ms"] = eager_ms(lambda: ssd_chunk_bwd_ref(*ins, Q, grads))
         rec["library_ms"] = None                 # no PyTorch call computes it
         rec["bound_ms"], rec["bound_by"] = ssd_bwd_bound(B, S, H, P, N, Q)
+        rec["bound_tc_ms"] = ssd_bwd_bound_tc(B, S, H, P, N, Q)
         emit({"check": "ssd_scan_bwd", **rec})
         check(launched == 2, f"ssd backward launches {launched}: {rec}")
         check(rec["same_bits_twice"], f"ssd backward: two launches differ: {rec}")
@@ -1707,10 +1761,11 @@ def check_train_matmuls(cfg, dev) -> dict:
     each held against ``matmul_ref`` on the same inputs (a planted zeroed or
     transposed tile must fail each check); then ``matmul_vjp`` (with its
     transposes' copies) timed against the same two products in cuBLAS and
-    their bound, summed over a step's launches."""
+    their bound, summed over a step's launches; and the forward product,
+    kernel and cuBLAS, the same way."""
     M, gen = TRAIN_B * TRAIN_S, torch.Generator(dev).manual_seed(11)
     per_shape, tot = [], {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0,
-                          "forward_bound_ms": 0.0}
+                          "forward_ms": 0.0, "forward_library_ms": 0.0, "forward_bound_ms": 0.0}
     for (K, N), n in slice_matmuls(cfg):
         x = torch.randn(M, K, device=dev, generator=gen).bfloat16()
         w = (torch.randn(K, N, device=dev, generator=gen) / math.sqrt(K)).bfloat16()
@@ -1734,15 +1789,20 @@ def check_train_matmuls(cfg, dev) -> dict:
         ms, _ = time_ms([lambda: mm_ops.matmul_vjp(x, w, dy, (True, True))], min_iters=5)
         lib, _ = time_ms([lambda: (torch.matmul(dy, w.t()), torch.matmul(x.t(), dy))],
                          min_iters=5)
+        fwd, _ = time_ms([lambda: ltrf_matmul(x, w)], min_iters=5)
+        fwd_lib, _ = time_ms([lambda: torch.matmul(x, w)], min_iters=5)
         b, by = bound(2 * (2 * M * K + 2 * K * N + 2 * M * N), 4 * M * K * N, torch.bfloat16)
-        rec.update({"ms": ms, "library_ms": lib, "bound_ms": b, "bound_by": by})
+        rec.update({"ms": ms, "library_ms": lib, "bound_ms": b, "bound_by": by,
+                    "forward_ms": fwd, "forward_library_ms": fwd_lib})
         emit({"check": "ltrf_matmul_train", "M": M, **rec})
         per_shape.append(rec)
         tot["ms"] += n * ms
         tot["library_ms"] += n * lib
         tot["bound_ms"] += n * b
         tot["launches"] += 2 * n
-        # the forward x @ w of a step's launches at this shape (not timed here)
+        # the forward x @ w of a step's launches at this shape
+        tot["forward_ms"] += n * fwd
+        tot["forward_library_ms"] += n * fwd_lib
         tot["forward_bound_ms"] += n * bound(2 * (M * K + K * N + M * N), 2 * M * K * N,
                                              torch.bfloat16)[0]
         del x, w, dy
@@ -1772,6 +1832,8 @@ def check_train_flash(cfg, dev) -> dict:
           f"flash check at the train shape passes a zeroed KV tile: {rec}")
     check(rec["lse_leaves_the_output_bits"], "flash: writing the LSE changed the output")
     fwd = eager_ms(lambda: flash_attention(q, k, v))
+    lib_fwd = eager_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                              enable_gqa=True))
     # the forward's bound from the shapes: its two products over the causal
     # (q, k) pairs
     pairs = B * H * S * (S + 1) / 2
@@ -1780,7 +1842,9 @@ def check_train_flash(cfg, dev) -> dict:
     del q, k, v, o, lse, do
     free_memory()
     return {"unit": f"one layer at B={B}, H={H}, KV={KV}, S={S}, d={d}, bf16, causal",
-            **rec, "kernel_forward_ms": fwd, "bound_ms": fwd_bound[0],
+            **rec, "kernel_forward_ms": fwd, "library_forward_ms": lib_fwd,
+            "library_forward": "scaled_dot_product_attention forward, bf16, eager",
+            "bound_ms": fwd_bound[0],
             "bound_by": fwd_bound[1], "layers_per_step": cfg.n_layers}
 
 
@@ -1858,8 +1922,8 @@ def phase_train_tinyllama(cfg, dev, seed) -> dict:
         check(routes[name]["wgmma"] == counts[name],
               f"train {name} routes {routes[name]}: every launch on wgmma")
     check(backward["flash_attention"] == TRAIN_STEPS * cfg.n_layers
-          == backward["flash_attention_by_route"]["mma"],
-          f"train flash backward launches {backward}: one a layer and step, on mma")
+          == backward["flash_attention_by_route"]["wgmma"],
+          f"train flash backward launches {backward}: one a layer and step, on wgmma")
     check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
           f"train losses or grad norms not finite: {out}")
     check(loss_after < loss_before, f"the first batch's loss did not fall: {out}")
@@ -1953,7 +2017,8 @@ def time_ssd_backward(cfg, dev) -> dict:
                      f"N={cfg.ssm_state}, Q={cfg.ssm_chunk}, fp32"),
             "backward_ms": bwd, "kernel_forward_ms": fwd,
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-            "backward_bound_ms": bwd_bound[0], "backward_bound_by": bwd_bound[1]}
+            "backward_bound_ms": bwd_bound[0], "backward_bound_by": bwd_bound[1],
+            "backward_bound_tc_ms": ssd_bwd_bound_tc(*shape)}
 
 
 def phase_train_grads(dev, seed) -> dict:
@@ -3001,10 +3066,12 @@ def kernels_line(cfgs, checks, paths, routes, trained, grads, bwd_paths) -> dict
                       "backward": backward(
                           "flash_attention", fb,
                           f"one call (three launches) at B={fb['B']}, H={fb['H']}, KV={fb['KV']}, "
-                          f"S={fb['S']}, d={fb['d']}, bf16, causal; library: SDPA forward + "
-                          "backward", {"launches_by_route": {
+                          f"S={fb['S']}, d={fb['d']}, bf16, causal; library: {fb['library']}",
+                          {"launches_by_route": {
                               r: sum(p["flash_attention_by_route"][r] for p in bwd_paths.values())
-                              for r in flash_ops.BWD_ROUTES.values()}}),
+                              for r in flash_ops.BWD_ROUTES.values()},
+                           **{k: fb[k] for k in ("eager_ms", "kernel_eager_call_ms",
+                                                 "library_fwd_bwd_ms")}}),
                       "train_shape_check": trained["flash_train_shape"],
                       "backward_ms_per_step": (trained["flash_train_shape"]["layers_per_step"]
                                                * fb["eager_ms"])}},
@@ -3025,9 +3092,12 @@ def kernels_line(cfgs, checks, paths, routes, trained, grads, bwd_paths) -> dict
                                                      "bound_tc_ms", "max_abs_err")}},
          "launches_by_path": {k: p["ssd_scan"] for k, p in paths.items()},
          "training": {"backward": backward(
-             "ssd_scan", sb, f"one launch at B={sb['B']}, S={sb['S']}, H={sb['H']}, P={sb['P']}, "
-             f"N={sb['N']}, Q={sb['Q']}, fp32 ({SSM_ARCH}'s train shape)",
-             {"library_note": "no single PyTorch call computes it"}),
+             "ssd_scan", sb, f"one call (two launches) at B={sb['B']}, S={sb['S']}, H={sb['H']}, "
+             f"P={sb['P']}, "
+             f"N={sb['N']}, Q={sb['Q']}, fp32 ({SSM_ARCH}'s train shape); bound_ms at the "
+             "fp32 FFMA rate, bound_tc_ms at 3 bf16 tensor-core products each",
+             {"library_note": "no single PyTorch call computes it",
+              "bound_tc_ms": sb["bound_tc_ms"]}),
              "train_grads_timing": grads["ssd_backward"]}},
     ]}
 
@@ -3062,6 +3132,7 @@ def main() -> int:
     dryrun = (dry_procs, dry_dir, time.time())
     try:
         run("kernel_checks", phase_kernel_checks, cfgs, dev)
+        run("build_logs", phase_build_logs)
         paths, routes = {}, {}
         for cfg, phases in [
                 (cfgs[0], [("prefill", phase_prefill), ("serve", phase_serve)]),

@@ -9,33 +9,48 @@
 //   D  = rowsum(dO o O)                 P  = exp(S scale - LSE)
 //   dV = sum over the group of P^T dO   dP = dO V^T      dS = P o (dP - D)
 //   dQ = scale dS K                     dK = scale sum over the group of dS^T Q
-// Three launches: (1) D, one warp a row; (2) dK and dV, one CTA per (b, KV
-// head, 64-key block), which loops over the group's H / KV query heads and
-// over the query blocks from the diagonal on, so the GQA sum happens inside
-// the CTA; (3) dQ, one CTA per (b, head, 64-query block), which loops over
-// the key blocks up to the diagonal.  S and dP are computed in both (2) and
-// (3).  No float atomics: every sum runs in a fixed order, so two runs give
-// the same bits.  Rows past S are read as zeros and masked out of P, so S
-// need not be a multiple of a block.
+// Three launches: (1) D, 16-byte vectors of a row over D / 8 (bf16) lanes; (2) dK and dV, one CTA per (b, KV
+// head, key block), which walks the group's H / KV query heads and the
+// query blocks from the diagonal on, so the GQA sum happens inside the CTA;
+// (3) dQ, one CTA per (b, head, query block), which walks the key blocks up
+// to the diagonal.  No float atomics: every sum runs in a fixed order, so
+// two runs give the same bits.  Rows past S are read as zeros and masked out
+// of P, so S need not be a multiple of a block.
 //
 // What bounds it on an H100: five products of 2 d flops over the causal
 // (query, key) pairs (S, dP, dV, dQ, dK) against one pass over q, k, v, O,
 // dO and the gradients: at the tinyllama-1.1b train shape (B=8, H 32, KV 4,
-// S=1024, d=64) ~0.086 ms of bf16 tensor-core operations, so operations.
-// This first version is simple rather than fast: plain loads into padded
-// shared memory, one tile at a time, and 4 warps a CTA.  Measured
-// (chip_smoke.py, H100 80GB HBM3 at 700 W): 0.97 ms a call at that shape,
-// 11x its bound, against scaled_dot_product_attention's 0.63 ms for the
-// forward and backward together; the plain recompute it replaces took 26.8.
+// S=1024, d=64) 0.0869 ms of bf16 tensor-core operations, so operations.
+// This design does seven: S and dP are formed in both (2) and (3), because
+// dQ summed over key blocks in (2) would need float atomics (two runs would
+// differ) or a partial per key block (S / 64 x B H S d fp32, ~1 GB at that
+// shape), so its floor is 7/5 of the bound, 0.122 ms.
 //
-// bf16: the products on the tensor cores (mma.sync m16n8k16, fp32
-// accumulators); each warp owns 16 rows (keys in (2), queries in (3)), so S
-// (or S^T) and dP come back in accumulator layout, are turned into P and dS
-// in registers and rounded once to bf16, and feed the next product as its A
-// fragments.  The B operands read K-contiguous rows from shared memory, or
-// with ldmatrix.trans where the product's K runs down the rows (dO and Q in
-// (2), K in (3)).  At d = 128 the inner tiles are 32 rows, to keep the
-// accumulators in registers.
+// bf16, in the shape of FA3's backward.  (2): one CTA owns 128 keys of one
+// (b, KV head): a producer warp (registers handed over with setmaxnreg)
+// loads K and V once by TMA and keeps (Q, dO) tiles of 64 query rows in
+// flight through a 3-stage ring (full / empty mbarriers), the tile's LSE (in
+// log2 units) and D rows beside them; two consumer warpgroups of 64 keys
+// each form S^T = K Q^T and dP^T = V dO^T with wgmma from shared memory,
+// turn them into P^T and dS^T in registers (exp2 against the LSE, the mask
+// only on tiles that cross the diagonal or the end of S), round them once
+// to bf16 and feed them to dV += P^T dO and dK += dS^T Q as wgmma's register
+// A operand, dO and Q read MN-major (the transpose bit).  (3): one CTA owns
+// 128 queries of one (b, head): Q and dO are loaded once, K and V tiles of
+// 64 rows stream through the same kind of ring, S and dP run on wgmma, dS is
+// formed in registers and dQ += dS K reads K MN-major.  At d <= 64 a
+// consumer issues the next tile's S and dP before this tile's dK/dV (or dQ)
+// products and forms the next P and dS while they run, and the two consumers
+// take turns to issue, so one's exp and masking overlap the other's
+// products; at d = 128 the dK and dV accumulators (128 registers a thread)
+// leave no room for two tiles in flight, so (2) takes one tile at a time
+// there.  Both grids launch their heaviest causal blocks first (key block 0
+// in (2), the last query block in (3)), the heads of one KV head side by
+// side so they share its tiles in L2.  Every head dim (16, 32, 64, 128)
+// takes this route.  Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): 0.420
+// ms a call at the train shape, 4.8x the 5-product bound and 3.4x the
+// 7-product floor (the mma.sync design before it: 0.970); SDPA's backward
+// alone takes 0.718 ms there, eager.
 //
 // fp32: CUDA-core FFMA only (never TF32), the forward fp32 kernel's layout:
 // 128 threads, each owning 4 rows of a 64-row block, P and dS through
@@ -48,8 +63,8 @@ namespace {
 using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;
-constexpr int BR = 64;                // rows of the CTA's own block
+constexpr int kThreads = 128;         // the fp32 route's CTA
+constexpr int BR = 64;                // rows of the fp32 route's own block
 constexpr float kLog2e = 1.4426950408889634f;
 
 // --------------------------------------------------------------- D = rowsum(dO o O)
@@ -57,251 +72,455 @@ constexpr float kLog2e = 1.4426950408889634f;
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
-template <typename T>
+// TPR = D / V threads a row, each reading V = 16 / sizeof(T) values of O and
+// of dO as one 16-byte vector (O and dO 16-byte aligned)
+template <typename T, int TPR>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-                int rows, int D) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;
+                int rows) {
+  constexpr int V = 16 / sizeof(T);
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / TPR, part = threadIdx.x % TPR;
   float s = 0.f;
-  for (int c = lane; c < D; c += 32)
-    s = fmaf(to_f(o[(size_t)row * D + c]), to_f(dout[(size_t)row * D + c]), s);
+  if (row < rows) {
+    const size_t at = ((size_t)row * TPR + part) * V;
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + at);
+    const uint4 dv = *reinterpret_cast<const uint4*>(dout + at);
+    const T* ot = reinterpret_cast<const T*>(&ov);
+    const T* dt = reinterpret_cast<const T*>(&dv);
 #pragma unroll
-  for (int m = 16; m > 0; m /= 2) s += __shfl_xor_sync(0xffffffffu, s, m);
-  if (lane == 0) delta[row] = s;
+    for (int i = 0; i < V; ++i) s = fmaf(to_f(ot[i]), to_f(dt[i]), s);
+  }
+#pragma unroll
+  for (int m = TPR / 2; m > 0; m /= 2) s += __shfl_xor_sync(0xffffffffu, s, m);
+  if (row < rows && part == 0) delta[row] = s;
 }
 
 // ------------------------------------------------------------------ bf16 route
 
-// rows r0 .. r0+n-1 of a (S, D) bf16 matrix into shared memory with row
-// pitch LD, zeros past S
-template <int D, int LD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, int n, int S) {
-  constexpr int V = D / 8;  // 16-byte vectors a row
-  for (int e = threadIdx.x; e < n * V; e += kThreads) {
-    const int r = e / V, c = (e % V) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
+constexpr int kWgThreads = 384;   // producer warpgroup + 2 consumer warpgroups
+constexpr int kStages = 3;
+constexpr int kOwn = 128;         // rows a CTA owns: keys in (2), queries in (3)
+constexpr int kRing = 64;         // rows of a ring tile: queries in (2), keys in (3)
+
+// The two consumers take turns to issue their products (named barriers 1
+// and 2, consumer 0 first), so that one's exp and masking overlap the
+// other's products.
+__device__ __forceinline__ void turn_wait(int c) { named_barrier(1 + c, 256); }
+__device__ __forceinline__ void turn_pass(int c) { named_barrier_arrive(2 - c, 256); }
+
+// 2^x by the special-function unit (relative error ~2^-22; 0 for x << 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// the m16n8k16 A fragment of rows r0.., columns k0.. of a row-major tile
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s, int ld, int r0, int k0) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  a[0] = ld32(s + (r0 + g) * ld + k0 + 2 * t);
-  a[1] = ld32(s + (r0 + g + 8) * ld + k0 + 2 * t);
-  a[2] = ld32(s + (r0 + g) * ld + k0 + 8 + 2 * t);
-  a[3] = ld32(s + (r0 + g + 8) * ld + k0 + 8 + 2 * t);
-}
-
-// the B fragment (k0.., n0..) of a tile stored n-major: row n holds B(., n)
-__device__ __forceinline__ void frag_b(uint32_t& b0, uint32_t& b1, const bf16* s, int ld, int n0,
-                                       int k0) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  b0 = ld32(s + (n0 + g) * ld + k0 + 2 * t);
-  b1 = ld32(s + (n0 + g) * ld + k0 + 8 + 2 * t);
-}
-
-// the B fragment (k0.., n0..) of a tile stored k-major: row k holds B(k, .)
-__device__ __forceinline__ void frag_b_trans(uint32_t& b0, uint32_t& b1, const bf16* s, int ld,
-                                             int k0, int n0) {
-  const uint32_t addr = smem_u32(s + (k0 + threadIdx.x % 16) * ld + n0);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc (16 rows x 8 NT columns) = A (rows r0.. of a, D wide) B^T (rows of b, D wide)
-template <int D, int NT, int LD>
-__device__ __forceinline__ void product_abt(float (&acc)[NT][4], const bf16* a, int r0,
-                                            const bf16* b) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    frag_a(af, a, LD, r0, kk * 16);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      uint32_t b0, b1;
-      frag_b(b0, b1, b, LD, n * 8, kk * 16);
-      mma(acc[n], af, b0, b1);
-    }
-  }
-}
-
-// out (16 rows x D) += X (16 x 8 NT, accumulator layout, rounded to bf16) Y
-// (8 NT rows of y, D wide, stored k-major)
-template <int D, int NT, int LD>
-__device__ __forceinline__ void product_xy(float (&out)[D / 8][4], const float (&x)[NT][4],
-                                           const bf16* y) {
-#pragma unroll
-  for (int kq = 0; kq < NT / 2; ++kq) {
-    const uint32_t af[4] = {pack_bf16(x[2 * kq][0], x[2 * kq][1]),
-                            pack_bf16(x[2 * kq][2], x[2 * kq][3]),
-                            pack_bf16(x[2 * kq + 1][0], x[2 * kq + 1][1]),
-                            pack_bf16(x[2 * kq + 1][2], x[2 * kq + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      uint32_t b0, b1;
-      frag_b_trans(b0, b1, y, LD, kq * 16, nd * 8);
-      mma(out[nd], af, b0, b1);
-    }
-  }
-}
-
-// this thread's accumulator rows (of 16: g and g + 8) and columns of 8 NT
-__device__ __forceinline__ int acc_row(int e) { return threadIdx.x % 32 / 4 + 8 * (e / 2); }
-__device__ __forceinline__ int acc_col(int n, int e) { return 8 * n + 2 * (threadIdx.x % 4) + e % 2; }
-
-// write a 16 x D accumulator (times `mul`) as bf16 rows r0.. of (S, D)
+// Shared memory of both bf16 kernels at head dim D.  Each tile is stored as
+// column blocks of `kSw`-byte rows (kSw = the swizzle, min(2 D, 128)): the
+// CTA's two own tiles (K, V in (2); Q, dO in (3)), then per stage its two
+// ring tiles, then per stage 64 LSE and 64 D values ((2) only), then the
+// barriers.
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4], int r0, int S,
-                                           float mul) {
+struct BwdLayout {
+  static constexpr int kSw = 2 * D < 128 ? 2 * D : 128;
+  static constexpr int kBlocks = 2 * D / kSw;
+  static constexpr int kOwnTile = kOwn * D * 2;
+  static constexpr int kTile = kRing * D * 2;
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kVecs = 2 * kOwnTile + kStages * kStage;
+  static constexpr int kBars = kVecs + kStages * 2 * kRing * (int)sizeof(float);
+  static constexpr size_t kSmem = 1024 + kBars + (1 + 2 * kStages) * sizeof(uint64_t);
+};
+
+// S = A B^T of one 64 x 64 tile (the k16 steps over d): A's 64 rows from a
+// K-major tile of `a_rows` rows at `a`, B's from a K-major ring tile at `b`
+template <int D, int SW>
+__device__ __forceinline__ void product_s(float (&acc)[32], uint32_t a, int a_rows, uint32_t b) {
+  wgmma_ss_n64_first<0>(acc, desc_kmajor(a, a_rows, SW, 0), desc_kmajor(b, kRing, SW, 0));
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + acc_row(2 * h);
-      if (r < S)
-        *reinterpret_cast<uint32_t*>(dst + (size_t)r * D + acc_col(nd, 0)) =
-            pack_bf16(acc[nd][2 * h] * mul, acc[nd][2 * h + 1] * mul);
-    }
+  for (int kk = 1; kk < D / 16; ++kk)
+    wgmma_ss<64, 0>(acc, desc_kmajor(a, a_rows, SW, kk), desc_kmajor(b, kRing, SW, kk), 1);
 }
 
-// (2) dK, dV: CTA (key block, b * KV + kv head); warp w owns keys 16 w ..
-template <int D, int BQ>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int group, int causal,
-                   float scale) {
-  constexpr int LD = D + 8;
-  constexpr int NT = BQ / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + BR * LD;
-  bf16* qs = vs + BR * LD;
-  bf16* dos = qs + BQ * LD;
-  float* ls = reinterpret_cast<float*>(dos + BQ * LD);  // LSE in log2 units
-  float* dl = ls + BQ;
-
-  const int k0 = blockIdx.x * BR, kvh = blockIdx.y, kr = threadIdx.x / 32 * 16;
-  const float scale_log2 = scale * kLog2e;
-  load_rows<D, LD>(ks, k + (size_t)kvh * S * D, k0, BR, S);
-  load_rows<D, LD>(vs, v + (size_t)kvh * S * D, k0, BR, S);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+// out += X Y for X (64 x 64) in registers as A fragments and Y the 64-row
+// ring tile at `y`, read MN-major
+template <int D, int SW>
+__device__ __forceinline__ void product_xy(float (&out)[D / 2], const uint32_t (&x)[4][4],
+                                           uint32_t y) {
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+  for (int kk = 0; kk < kRing / 16; ++kk) wgmma_rs<D>(out, x[kk], desc_mnmajor(y, kRing, SW, kk), 1);
+}
 
-  const int q_first = causal ? k0 / BQ * BQ : 0;
-  for (int hh = 0; hh < group; ++hh) {
-    const size_t bh = (size_t)kvh * group + hh;
-    for (int q0 = q_first; q0 < S; q0 += BQ) {
-      __syncthreads();  // the last tile's reads are done
-      load_rows<D, LD>(qs, q + bh * S * D, q0, BQ, S);
-      load_rows<D, LD>(dos, dout + bh * S * D, q0, BQ, S);
-      for (int i = threadIdx.x; i < BQ; i += kThreads) {
-        const bool ok = q0 + i < S;
-        ls[i] = ok ? lse[bh * S + q0 + i] * kLog2e : 0.f;
-        dl[i] = ok ? delta[bh * S + q0 + i] : 0.f;
+// A 64 x 64 accumulator (rounded once to bf16) as wgmma A fragments: the k16
+// step kk takes the accumulator's values 8 kk .. 8 kk + 7
+__device__ __forceinline__ void pack(uint32_t (&f)[4][4], const float (&acc)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[kk][e] = pack_bf16(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1]);
+}
+
+template <int D>
+__device__ __forceinline__ void zero(float (&acc)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) acc[i] = 0.f;
+}
+
+// Accumulator layout of a warpgroup's 64 rows: value i of a thread sits at
+// row 16 warp + lane / 4 + 8 acc_half(i), column acc_col(i) (of N).
+__device__ __forceinline__ int acc_half(int i) { return (i / 2) % 2; }
+__device__ __forceinline__ int acc_col(int i) { return 8 * (i / 4) + 2 * (threadIdx.x % 4) + i % 2; }
+
+// write a 64-row accumulator (times `mul`) as bf16 rows r_lo, r_lo + 8 of (S, D)
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[D / 2], int r_lo, int S,
+                                          float mul) {
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = r_lo + 8 * acc_half(i);
+    if (r < S)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)r * D + acc_col(i)) =
+          pack_bf16(acc[i] * mul, acc[i + 1] * mul);
+  }
+}
+
+// (2) dK, dV.  q, dout: (BH, S, D) as tensor maps of 64-row boxes; k, v:
+// (BH / group, S, D) of 128-row boxes.  blockIdx.x is b * KV + KV head,
+// blockIdx.y the key block (block 0, the heaviest under causal, first).
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int group, int causal,
+                     float scale) {
+  using L = BwdLayout<D>;
+  constexpr int SW = L::kSw;
+  constexpr bool kPipe = D <= 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ks = smem;
+  unsigned char* vs = smem + L::kOwnTile;
+  unsigned char* ring = smem + 2 * L::kOwnTile;
+  float* vecs = reinterpret_cast<float*>(smem + L::kVecs);   // per stage: LSE (log2), then D
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int kvh = blockIdx.x;
+  const int k0 = blockIdx.y * kOwn;
+  const int q_first = causal ? k0 : 0;
+  const int per_head = (S - q_first + kRing - 1) / kRing;
+  const int n_tiles = group * per_head;          // (query head, query block), head-major
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);           // the producer warp's lanes, after their LSE / D stores
+      mbar_init(&empty[s], 2);           // one arrival per consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    regs_dealloc<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * L::kOwnTile);
+#pragma unroll
+        for (int b = 0; b < L::kBlocks; ++b) {
+          tma_load_3d(ks + b * kOwn * SW, &tk, kv_full, b * SW / 2, k0, kvh);
+          tma_load_3d(vs + b * kOwn * SW, &tv, kv_full, b * SW / 2, k0, kvh);
+        }
       }
-      __syncthreads();
-      float st[NT][4], dpt[NT][4];  // S^T and dP^T: this warp's 16 keys x BQ queries
-      product_abt<D, NT, LD>(st, ks, kr, qs);
-      product_abt<D, NT, LD>(dpt, vs, kr, dos);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const int q0 = q_first + (j % per_head) * kRing;
+        const size_t bh = (size_t)kvh * group + j / per_head;
+        if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) + 1) & 1);
+        unsigned char* st = ring + s * L::kStage;
+        if (lane == 0) {
+          mbar_expect_tx_only(&full[s], L::kStage);
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+          for (int b = 0; b < L::kBlocks; ++b) {
+            tma_load_3d(st + b * kRing * SW, &tq, &full[s], b * SW / 2, q0, (int)bh);
+            tma_load_3d(st + L::kTile + b * kRing * SW, &tdo, &full[s], b * SW / 2, q0, (int)bh);
+          }
+        }
+        float* vec = vecs + s * 2 * kRing;
+        for (int i = lane; i < kRing; i += 32) {
+          const bool ok = q0 + i < S;
+          vec[i] = ok ? lse[bh * S + q0 + i] * kLog2e : 0.f;
+          vec[kRing + i] = ok ? delta[bh * S + q0 + i] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    regs_alloc<232>();
+    const int c = wg - 1;                  // this consumer's keys: k0 + 64 c ..
+    const int lane = threadIdx.x % 32;
+    const int key_lo = k0 + c * 64 + (threadIdx.x / 32) % 4 * 16 + lane / 4;
+    const float scale_log2 = scale * kLog2e;
+    float dk_acc[D / 2], dv_acc[D / 2];
+    zero(dk_acc);
+    zero(dv_acc);
+    float st[32], dpt[32];                 // S^T, dP^T: 64 keys x 64 queries
+    uint32_t pf[4][4], dsf[4][4];          // P^T, dS^T as A fragments
+    const uint32_t ka = smem_u32(ks) + c * 64 * SW, va = smem_u32(vs) + c * 64 * SW;
+
+    auto wait_tile = [&](int j) { mbar_wait(&full[j % kStages], (j / kStages) & 1); };
+    auto stage = [&](int j) { return smem_u32(ring + (j % kStages) * L::kStage); };
+    auto issue_s = [&](int j) {            // S^T = K Q^T, dP^T = V dO^T
+      product_s<D, SW>(st, ka, kOwn, stage(j));
+      product_s<D, SW>(dpt, va, kOwn, stage(j) + L::kTile);
+    };
+    auto issue_dkdv = [&](int j) {         // dV += P^T dO, dK += dS^T Q
+      product_xy<D, SW>(dv_acc, pf, stage(j) + L::kTile);
+      product_xy<D, SW>(dk_acc, dsf, stage(j));
+    };
+    // P^T and dS^T of tile j in place; the mask only where the tile crosses
+    // the diagonal or the end of S
+    auto grads = [&](int j) {
+      const int q0 = q_first + (j % per_head) * kRing;
+      const float* vec = vecs + (j % kStages) * 2 * kRing;
+      const bool edge = q0 + kRing > S || k0 + kOwn > S || (causal && q0 < k0 + kOwn);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int qc = 8 * n + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(vec + qc);
+        const float2 d2 = *reinterpret_cast<const float2*>(vec + kRing + qc);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int key = k0 + kr + acc_row(e), qi = acc_col(n, e), qry = q0 + qi;
-          float p = exp2f(fmaf(st[n][e], scale_log2, -ls[qi]));
-          if (key >= S || qry >= S || (causal && key > qry)) p = 0.f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - dl[qi]);
+          const int i = 4 * n + e;
+          float p = fast_exp2(fmaf(st[i], scale_log2, -(e % 2 ? l2.y : l2.x)));
+          if (edge) {
+            const int key = key_lo + 8 * (e / 2), qry = q0 + qc + e % 2;
+            if (key >= S || qry >= S || (causal && key > qry)) p = 0.f;
+          }
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - (e % 2 ? d2.y : d2.x));
         }
-      product_xy<D, NT, LD>(dv_acc, st, dos);   // dV += P^T dO
-      product_xy<D, NT, LD>(dk_acc, dpt, qs);   // dK += dS^T Q
+      }
+    };
+    auto release = [&](int j) {
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[j % kStages]);
+    };
+
+    mbar_wait(kv_full, 0);
+    if constexpr (kPipe) {
+      // Each step issues the next tile's S^T and dP^T, then this tile's dK/dV
+      // products, and forms the next P^T and dS^T while those run.  The last
+      // tile's products are peeled off, so that no wgmma sits under a branch.
+      wait_tile(0);
+      wgmma_fence();
+      issue_s(0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      grads(0);
+      pack(pf, st);
+      pack(dsf, dpt);
+      if (c == 1) named_barrier_arrive(1, 256);
+      for (int j = 0; j + 1 < n_tiles; ++j) {
+        wait_tile(j + 1);
+        turn_wait(c);
+        wgmma_fence();
+        issue_s(j + 1);
+        wgmma_commit();
+        issue_dkdv(j);
+        wgmma_commit();
+        turn_pass(c);
+        wgmma_wait<1>();
+        fence_regs(st);
+        fence_regs(dpt);
+        grads(j + 1);
+        wgmma_wait<0>();
+        fence_regs(dk_acc);
+        fence_regs(dv_acc);
+        release(j);
+        pack(pf, st);
+        pack(dsf, dpt);
+      }
+      turn_wait(c);
+      wgmma_fence();
+      issue_dkdv(n_tiles - 1);
+      wgmma_commit();
+      if (c == 0) named_barrier_arrive(2, 256);
+      wgmma_wait<0>();
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+    } else {
+      for (int j = 0; j < n_tiles; ++j) {
+        wait_tile(j);
+        wgmma_fence();
+        issue_s(j);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+        grads(j);
+        pack(pf, st);
+        pack(dsf, dpt);
+        wgmma_fence();
+        issue_dkdv(j);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk_acc);
+        fence_regs(dv_acc);
+        release(j);
+      }
     }
+    store_acc<D>(dk + (size_t)kvh * S * D, dk_acc, key_lo, S, scale);
+    store_acc<D>(dv + (size_t)kvh * S * D, dv_acc, key_lo, S, 1.f);
   }
-  store_rows<D>(dk + (size_t)kvh * S * D, dk_acc, k0 + kr, S, scale);
-  store_rows<D>(dv + (size_t)kvh * S * D, dv_acc, k0 + kr, S, 1.f);
 }
 
-// (3) dQ: CTA (query block, b * H + head); warp w owns queries 16 w ..
-template <int D, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dq, int S, int group, int causal, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int NT = BK / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + BR * LD;
-  bf16* ks = dos + BR * LD;
-  bf16* vs = ks + BK * LD;
+// (3) dQ.  q, dout: (BH, S, D) as tensor maps of 128-row boxes; k, v:
+// (BH / group, S, D) of 64-row boxes.  blockIdx.x is bh (the query heads of
+// one KV head are neighbours), blockIdx.y counts query blocks from the last
+// (heaviest) one.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dq, int S, int group, int causal, float scale) {
+  using L = BwdLayout<D>;
+  constexpr int SW = L::kSw;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;
+  unsigned char* dos = smem + L::kOwnTile;
+  unsigned char* ring = smem + 2 * L::kOwnTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const int q0 = blockIdx.x * BR, qr = threadIdx.x / 32 * 16;
-  const size_t bh = blockIdx.y, kvh = bh / group;
-  const float scale_log2 = scale * kLog2e;
-  load_rows<D, LD>(qs, q + bh * S * D, q0, BR, S);
-  load_rows<D, LD>(dos, dout + bh * S * D, q0, BR, S);
-  float lrow[2], drow[2];  // LSE (log2 units) and D of rows g and g + 8
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + qr + acc_row(2 * h);
-    lrow[h] = r < S ? lse[bh * S + r] * kLog2e : 0.f;
-    drow[h] = r < S ? delta[bh * S + r] : 0.f;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;
+  const int k_end = causal ? min(S, q0 + kOwn) : S;
+  const int n_tiles = (k_end + kRing - 1) / kRing;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    fence_barrier_init();
   }
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[i][e] = 0.f;
+  __syncthreads();
 
-  const int k_end = causal ? min(S, q0 + BR) : S;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    load_rows<D, LD>(ks, k + kvh * S * D, k0, BK, S);
-    load_rows<D, LD>(vs, v + kvh * S * D, k0, BK, S);
-    __syncthreads();
-    float s[NT][4], dp[NT][4];  // this warp's 16 queries x BK keys
-    product_abt<D, NT, LD>(s, qs, qr, ks);
-    product_abt<D, NT, LD>(dp, dos, qr, vs);
+  if (wg == 0) {
+    regs_dealloc<40>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * L::kOwnTile);
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qry = q0 + qr + acc_row(e), key = k0 + acc_col(n, e);
-        float p = exp2f(fmaf(s[n][e], scale_log2, -lrow[e / 2]));
-        if (key >= S || qry >= S || (causal && key > qry)) p = 0.f;
-        dp[n][e] = p * (dp[n][e] - drow[e / 2]);
+      for (int b = 0; b < L::kBlocks; ++b) {
+        tma_load_3d(qs + b * kOwn * SW, &tq, q_full, b * SW / 2, q0, bh);
+        tma_load_3d(dos + b * kOwn * SW, &tdo, q_full, b * SW / 2, q0, bh);
       }
-    product_xy<D, NT, LD>(dq_acc, dp, ks);   // dQ += dS K
+      const int kvh = bh / group;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) + 1) & 1);
+        unsigned char* st = ring + s * L::kStage;
+        mbar_expect_tx(&full[s], L::kStage);
+#pragma unroll
+        for (int b = 0; b < L::kBlocks; ++b) {
+          tma_load_3d(st + b * kRing * SW, &tk, &full[s], b * SW / 2, j * kRing, kvh);
+          tma_load_3d(st + L::kTile + b * kRing * SW, &tv, &full[s], b * SW / 2, j * kRing, kvh);
+        }
+      }
+    }
+  } else {
+    regs_alloc<232>();
+    const int c = wg - 1;                  // this consumer's queries: q0 + 64 c ..
+    const int lane = threadIdx.x % 32;
+    const int row_lo = q0 + c * 64 + (threadIdx.x / 32) % 4 * 16 + lane / 4;
+    const float scale_log2 = scale * kLog2e;
+    float lrow[2], drow[2];                // LSE (log2 units) and D of rows row_lo, row_lo + 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row_lo + 8 * h;
+      lrow[h] = r < S ? lse[(size_t)bh * S + r] * kLog2e : 0.f;
+      drow[h] = r < S ? delta[(size_t)bh * S + r] : 0.f;
+    }
+    float dq_acc[D / 2];
+    zero(dq_acc);
+    float sa[32], dp[32];                  // S, dP: 64 queries x 64 keys
+    uint32_t dsf[4][4];                    // dS as A fragments
+    const uint32_t qa = smem_u32(qs) + c * 64 * SW, doa = smem_u32(dos) + c * 64 * SW;
+
+    auto wait_tile = [&](int j) { mbar_wait(&full[j % kStages], (j / kStages) & 1); };
+    auto stage = [&](int j) { return smem_u32(ring + (j % kStages) * L::kStage); };
+    auto issue_s = [&](int j) {            // S = Q K^T, dP = dO V^T
+      product_s<D, SW>(sa, qa, kOwn, stage(j));
+      product_s<D, SW>(dp, doa, kOwn, stage(j) + L::kTile);
+    };
+    auto issue_dq = [&](int j) { product_xy<D, SW>(dq_acc, dsf, stage(j)); };   // dQ += dS K
+    auto grads = [&](int j) {              // dS of tile j in place (in dp)
+      const int k0 = j * kRing;
+      const bool edge = k0 + kRing > S || q0 + kOwn > S || (causal && k0 + kRing > q0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = acc_half(i);
+        float p = fast_exp2(fmaf(sa[i], scale_log2, -lrow[h]));
+        if (edge) {
+          const int key = k0 + acc_col(i), qry = row_lo + 8 * h;
+          if (key >= S || qry >= S || (causal && key > qry)) p = 0.f;
+        }
+        dp[i] = p * (dp[i] - drow[h]);
+      }
+    };
+    auto release = [&](int j) {
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[j % kStages]);
+    };
+
+    mbar_wait(q_full, 0);
+    wait_tile(0);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sa);
+    fence_regs(dp);
+    grads(0);
+    pack(dsf, dp);
+    if (c == 1) named_barrier_arrive(1, 256);
+    for (int j = 0; j + 1 < n_tiles; ++j) {
+      wait_tile(j + 1);
+      turn_wait(c);
+      wgmma_fence();
+      issue_s(j + 1);
+      wgmma_commit();
+      issue_dq(j);
+      wgmma_commit();
+      turn_pass(c);
+      wgmma_wait<1>();
+      fence_regs(sa);
+      fence_regs(dp);
+      grads(j + 1);
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+      release(j);
+      pack(dsf, dp);
+    }
+    turn_wait(c);
+    wgmma_fence();
+    issue_dq(n_tiles - 1);
+    wgmma_commit();
+    if (c == 0) named_barrier_arrive(2, 256);
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    store_acc<D>(dq + (size_t)bh * S * D, dq_acc, row_lo, S, scale);
   }
-  store_rows<D>(dq + bh * S * D, dq_acc, q0 + qr, S, scale);
 }
 
 // ------------------------------------------------------------------ fp32 route
@@ -499,19 +718,20 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T>
-cudaError_t launch_delta(const Args& a, int D) {
-  const int rows = a.BH * a.S, per_block = 256 / 32;
-  flash_bwd_delta<T><<<(rows + per_block - 1) / per_block, 256, 0, a.stream>>>(
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, rows, D);
+template <typename T, int D>
+cudaError_t launch_delta(const Args& a) {
+  constexpr int TPR = D * (int)sizeof(T) / 16;
+  const int rows = a.BH * a.S, per_block = 256 / TPR;
+  flash_bwd_delta<T, TPR><<<(rows + per_block - 1) / per_block, 256, 0, a.stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, rows);
   return cudaGetLastError();
 }
 
-// the three launches: D, then dK and dV (one CTA per key block and KV row),
-// then dQ (one CTA per query block and query row)
+// the fp32 route's three launches: D, then dK and dV (one CTA per key block
+// and KV row), then dQ (one CTA per query block and query row)
 template <typename T, int D, auto DKDV, auto DQ>
 cudaError_t launch(const Args& a, size_t smem_kv, size_t smem_q) {
-  cudaError_t err = launch_delta<T>(a, D);
+  cudaError_t err = launch_delta<T, D>(a);
   if (err == cudaSuccess) err = allow_smem<DKDV>();
   if (err == cudaSuccess) err = allow_smem<DQ>();
   if (err != cudaSuccess) return err;
@@ -530,12 +750,41 @@ cudaError_t launch(const Args& a, size_t smem_kv, size_t smem_q) {
   return cudaGetLastError();
 }
 
+// The bf16 route's three launches: D, then dK and dV (one CTA per 128 keys
+// of a KV row), then dQ (one CTA per 128 queries of a query row).
 template <int D>
-cudaError_t launch_mma(const Args& a) {
-  constexpr int BI = D == 128 ? 32 : 64;  // rows of the inner tiles
-  constexpr size_t tiles = (size_t)(2 * BR + 2 * BI) * (D + 8) * sizeof(bf16);
-  return launch<bf16, D, flash_bwd_dkdv_mma<D, BI>, flash_bwd_dq_mma<D, BI>>(
-      a, tiles + 2 * BI * sizeof(float), tiles);
+cudaError_t launch_wgmma(const Args& a) {
+  using L = BwdLayout<D>;
+  cudaError_t err = launch_delta<bf16, D>(a);
+  if (err != cudaSuccess) return err;
+  CUtensorMap q_ring, do_ring, k_own, v_own, q_own, do_own, k_ring, v_ring;
+  const cuuint64_t q_dims[3] = {(cuuint64_t)D, (cuuint64_t)a.S, (cuuint64_t)a.BH};
+  const cuuint64_t kv_dims[3] = {(cuuint64_t)D, (cuuint64_t)a.S, (cuuint64_t)(a.BH / a.group)};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)a.S * D * 2};
+  const cuuint32_t ring_box[3] = {L::kSw / 2, kRing, 1};
+  const cuuint32_t own_box[3] = {L::kSw / 2, kOwn, 1};
+  if (!make_tmap(&q_ring, a.q, 3, q_dims, strides, ring_box, L::kSw) ||
+      !make_tmap(&do_ring, a.dout, 3, q_dims, strides, ring_box, L::kSw) ||
+      !make_tmap(&k_own, a.k, 3, kv_dims, strides, own_box, L::kSw) ||
+      !make_tmap(&v_own, a.v, 3, kv_dims, strides, own_box, L::kSw) ||
+      !make_tmap(&q_own, a.q, 3, q_dims, strides, own_box, L::kSw) ||
+      !make_tmap(&do_own, a.dout, 3, q_dims, strides, own_box, L::kSw) ||
+      !make_tmap(&k_ring, a.k, 3, kv_dims, strides, ring_box, L::kSw) ||
+      !make_tmap(&v_ring, a.v, 3, kv_dims, strides, ring_box, L::kSw))
+    return cudaErrorInvalidValue;
+  if ((err = allow_smem<flash_bwd_dkdv_wgmma<D>>()) != cudaSuccess ||
+      (err = allow_smem<flash_bwd_dq_wgmma<D>>()) != cudaSuccess)
+    return err;
+  const float* lse = static_cast<const float*>(a.lse);
+  const int blocks = (a.S + kOwn - 1) / kOwn;
+  flash_bwd_dkdv_wgmma<D><<<dim3(a.BH / a.group, blocks), kWgThreads, L::kSmem, a.stream>>>(
+      q_ring, do_ring, k_own, v_own, lse, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.S, a.group, a.causal, a.scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_bwd_dq_wgmma<D><<<dim3(a.BH, blocks), kWgThreads, L::kSmem, a.stream>>>(
+      q_own, do_own, k_ring, v_ring, lse, a.delta, static_cast<bf16*>(a.dq), a.S, a.group,
+      a.causal, a.scale);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -549,7 +798,7 @@ cudaError_t launch_fp32(const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (mma.sync).  q, o, dout, dq:
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma).  q, o, dout, dq:
 // (BH, S, D); k, v, dk, dv: (BH / group, S, D); lse, delta (scratch): fp32
 // (BH, S).  Returns the first failing launch's cudaError_t (0 on success).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
@@ -563,7 +812,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
                causal, scale, static_cast<cudaStream_t>(stream)};
 #define FLASH_BWD_CASE(d) \
   case d:                 \
-    return dtype == 1 ? launch_mma<d>(a) : launch_fp32<d>(a);
+    return dtype == 1 ? launch_wgmma<d>(a) : launch_fp32<d>(a);
   switch (D) {
     FLASH_BWD_CASE(16)
     FLASH_BWD_CASE(32)

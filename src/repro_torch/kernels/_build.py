@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/kernels/<name>-<hash>.so`` under the repository root (the hash covers
 the source and every ``csrc/*.cuh`` header it includes),
-at first use (or all at once, in parallel, through ``build``).  Nothing here
-runs at import time: the CPU tests import every module and have no ``nvcc``.
+at first use (or all at once, in parallel, through ``build``, which may
+return before the compiles end).  Nothing here runs at import time: the CPU
+tests import every module and have no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -55,42 +56,62 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names) -> dict[str, str]:
+_PENDING: dict[str, tuple] = {}   # name -> (nvcc process, temporary file, library path)
+
+
+def build(names, wait: bool = True) -> dict[str, str]:
     """Compile every named source not built yet, all ``nvcc``s at once.
 
     Returns ``{name: compiler output}`` (``-Xptxas -v``: registers, shared
     memory and spills per kernel) for the sources compiled by this call.
+    With ``wait=False`` it returns at once, and ``load`` (or a later
+    ``build``) finishes each compile when its library is first needed.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() or name in _PENDING:
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        _PENDING[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True), tmp, out)
+    if not wait:
+        return {}
     logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        (BUILD_DIR / f"{name}.log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)
+    for name in [n for n in names if n in _PENDING]:
+        try:
+            logs[name] = _finish(name)
+        except RuntimeError as err:
+            failed.append(str(err))
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return logs
+
+
+def _finish(name: str) -> str:
+    """Wait for ``name``'s compile, keep its log, and put its library in
+    place; raise with the compiler's output if it failed."""
+    proc, tmp, out = _PENDING.pop(name)
+    log, _ = proc.communicate()
+    (BUILD_DIR / f"{name}.log").write_text(log)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return log
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        build([name])
+        if name in _PENDING:
+            try:
+                _finish(name)
+            except RuntimeError as err:
+                raise RuntimeError(f"kernel build failed: {err}") from None
+        else:
+            build([name])
         lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return lib

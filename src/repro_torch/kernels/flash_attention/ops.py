@@ -17,7 +17,7 @@ tensors the hand-written backward kernel ``csrc/flash_attention_bwd.cu``
 inside each CTA, then dQ; no float atomics, so two runs give the same bits),
 on CPU tensors its plain version ``ref.flash_bwd_ref``.  ``flash_bwd.launches``
 counts the backward calls that launched the kernel, ``flash_bwd.launches_by_route``
-the same per route (``"mma"`` for bf16: mma.sync on the tensor cores;
+the same per route (``"wgmma"`` for bf16: TMA rings feeding wgmma;
 ``"fp32"``: CUDA cores).  The JAX package has no backward kernel (it
 differentiates XLA einsums).
 """
@@ -34,7 +34,7 @@ from .ref import attention_lse_ref, attention_ref, flash_bwd_ref
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
-BWD_ROUTES = {torch.bfloat16: "mma", torch.float32: "fp32"}
+BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
 
 
 def _library():

@@ -17,15 +17,16 @@ launches.
 Gradients: where grad is enabled and an input requires it, ``ssd_chunk``
 runs inside ``SsdChunkFn``, whose forward launches the kernel and whose
 backward is ``ssd_chunk_bwd``: on CUDA tensors the hand-written backward
-kernel ``csrc/ssd_scan_bwd.cu`` (fp32 FFMA, one CTA per (b, chunk, group of
-``BWD_HEADS`` heads), on CPU tensors its plain version
-``ref.ssd_chunk_bwd_ref``; each gradient comes back in its input's dtype and
-an output with no gradient counts as zeros.  The kernel sums dB and dC over
-its CTA's heads and writes one partial per head group, and dA per (b, chunk,
-head); the wrapper sums those partials with ``torch.sum`` (a fixed order: no
-float atomics, so two runs give the same bits).  ``ssd_chunk_bwd.launches``
-counts its launches.  The recurrence ``chunk_carry`` and the ``y_inter``
-product stay plain autograd.
+kernel ``csrc/ssd_scan_bwd.cu`` (two launches: one CTA per (b, chunk, group
+of heads, 64-row j-block), its products on the tensor cores in bf16x3; then
+a small launch that sums the CTAs' partials in a fixed order and runs the
+reverse cumsum in float64), on CPU tensors
+its plain version ``ref.ssd_chunk_bwd_ref``; each gradient comes back in its
+input's dtype and an output with no gradient counts as zeros.  No float
+atomics, so two runs give the same bits; the wrapper sums dA over (b, chunk)
+with ``torch.sum`` (a fixed order).  ``ssd_chunk_bwd.launches`` counts its
+calls (each two launches).  The recurrence ``chunk_carry`` and the
+``y_inter`` product stay plain autograd.
 """
 from __future__ import annotations
 
@@ -39,8 +40,6 @@ from .ref import chunk_carry, ssd_chunk_bwd_ref, ssd_chunk_ref, ssd_ref
 
 MAX_CHUNK = 256
 MAX_DIM = 128          # P and N
-BWD_HEADS = 4          # heads of one backward CTA
-BWD_BLOCK = 64         # rows of the backward's i- and j-blocks
 
 
 def _library():
@@ -53,12 +52,15 @@ def _library():
 
 
 def _bwd_library():
+    """(launch, scratch size) of the backward kernel."""
     lib = _build.load("ssd_scan_bwd")
-    fn = lib.ssd_chunk_bwd_launch
+    fn, size = lib.ssd_chunk_bwd_launch, lib.ssd_chunk_bwd_scratch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        size.argtypes = [ctypes.c_int] * 6
+        size.restype = ctypes.c_longlong
+    return fn, size
 
 
 def ssd_chunk(x, dt, A, Bm, Cm, chunk: int):
@@ -162,27 +164,28 @@ def ssd_chunk_bwd(ins, chunk: int, grads):
                 raise ValueError(f"ssd_chunk_bwd: an output gradient {tuple(g.shape)} on "
                                  f"{g.device}, need {shape} on {x.device}")
             g = g.float().contiguous()
+            if g.data_ptr() % 16:            # the kernel reads it in 16-byte vectors
+                g = g.clone()
         gs.append(g)
-    groups = -(-H // BWD_HEADS)
-    blocks = -(-chunk // BWD_BLOCK)
     f32 = dict(dtype=torch.float32, device=x.device)
     gx, gdt = torch.empty_like(x), torch.empty_like(dt)
     gA = torch.empty((Bsz, nc, H), **f32)
-    gB, gC = (torch.empty((groups, Bsz, S, N), **f32) for _ in range(2))
-    # per CTA: C B^T and the head-summed dG of one j-block against every i-block
-    scratch = torch.empty((Bsz * nc * groups, 2, blocks, BWD_BLOCK, BWD_BLOCK), **f32)
-    launch = _bwd_library()
+    gB, gC = torch.empty_like(Bm), torch.empty_like(Cm)
+    launch, size = _bwd_library()
+    # the CTAs' partials: dB per head group, dC per (head group, j-block),
+    # dcum's row sums per j-block, the crossing pairs, decay_end's terms
+    scratch = torch.empty(size(Bsz, S, H, P, N, chunk), **f32)
     with torch.cuda.device(x.device):
         err = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                      *(0 if g is None else g.data_ptr() for g in gs),
                      gx.data_ptr(), gdt.data_ptr(), gA.data_ptr(), gB.data_ptr(),
-                     gC.data_ptr(), scratch.data_ptr(), Bsz, S, H, P, N, chunk, BWD_HEADS,
+                     gC.data_ptr(), scratch.data_ptr(), Bsz, S, H, P, N, chunk,
                      torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan backward kernel launch failed: cudaError {err}")
     _SSD_CHUNK_BWD.launches += 1
     return (gx.to(ins[0].dtype), gdt.to(ins[1].dtype), gA.sum((0, 1)).to(ins[2].dtype),
-            gB.sum(0).to(ins[3].dtype), gC.sum(0).to(ins[4].dtype))
+            gB.to(ins[3].dtype), gC.to(ins[4].dtype))
 
 
 def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 64):

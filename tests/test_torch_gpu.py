@@ -519,14 +519,14 @@ def test_every_kernel_output_carries_a_backward(dev):
 
 # flash's backward kernel against flash_bwd_ref on the same inputs, O and
 # LSE from the kernel forward, per gradient as a relative L2: in fp32 (CUDA
-# cores) sum order only; in bf16 the kernel rounds P and dS once to bf16
-# before its products (emulated on the CPU at the train shape: 2.4e-3 against
+# cores) sum order only; in bf16 (wgmma) the kernel rounds P and dS once to
+# bf16 before its products (emulated on the CPU at the train shape: 2.4e-3 against
 # an fp32 backward) and each gradient to bf16 at the end
 FLASH_BWD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-# ssd_scan's backward kernel (fp32 FFMA) against ssd_chunk_bwd_ref run in
-# float64, per gradient: dA sums a reverse cumsum whose terms cancel (with
-# only the states' gradient its first entry is 0 in exact arithmetic), so an
-# fp32 plain version is itself ~1e-4 off there
+# ssd_scan's backward kernel (its products in bf16x3) against
+# ssd_chunk_bwd_ref run in float64, per gradient: dA sums a reverse cumsum
+# whose terms cancel (with only the states' gradient its first entry is 0 in
+# exact arithmetic), so an fp32 plain version is itself ~1e-4 off there
 SSD_BWD_REL_L2 = 1e-4
 
 
@@ -566,6 +566,24 @@ def test_flash_backward_matches_plain(dev, d, S, heads, causal, dtype):
     assert [g.dtype for g in got] == [dtype] * 3
     errs = _rel_l2s(got, flash_bwd_ref(q, k, v, o, lse, do, causal))
     assert max(errs) <= FLASH_BWD_REL_L2[dtype], errs
+
+
+# the bf16 kernels' tile edges: a dK/dV CTA owns 128 keys and walks query
+# tiles of 64, a dQ CTA owns 128 queries and walks key tiles of 64; S past
+# a multiple of 128, S under 64, one KV head (group 8) and group 8 over two
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(8, 1), (16, 2)], ids=["kv1", "group8"])
+@pytest.mark.parametrize("S", [40, 130, 1000])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_backward_tile_edges(dev, d, S, heads, causal):
+    H, KV = heads
+    ins = _flash_bwd_inputs(dev, 2, H, KV, S, d, causal, torch.bfloat16, seed=5)
+    got = flash_ops.flash_bwd(*ins, causal)
+    again = flash_ops.flash_bwd(*ins, causal)
+    torch.cuda.synchronize()
+    errs = _rel_l2s(got, flash_bwd_ref(*ins, causal))
+    assert max(errs) <= FLASH_BWD_REL_L2[torch.bfloat16], errs
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -625,6 +643,23 @@ def test_ssd_backward_matches_plain(dev, shape, used):
             assert not a.any(), name
         else:
             assert _rel_l2s([a], [b])[0] <= SSD_BWD_REL_L2, (name, _rel_l2s([a], [b]))
+
+
+# the kernel's edges: a CTA per (b, chunk, head group, 64-row j-block), its
+# i-blocks 64 rows; chunks of one, two and four blocks, both state widths'
+# tiles, H off the head group (6 heads in groups of 4), S ragged against
+# every chunk
+@pytest.mark.parametrize("N", [64, 128])
+@pytest.mark.parametrize("Q", [64, 128, 256])
+def test_ssd_backward_tile_edges(dev, Q, N):
+    ins = _ssd_inputs(1, 1000, 6, 64, N, dev)
+    grads = _ssd_grads(ssd_chunk(*ins, Q), dev, 9)
+    got = ssd_ops.ssd_chunk_bwd(ins, Q, grads)
+    again = ssd_ops.ssd_chunk_bwd(ins, Q, grads)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), got, _ssd_bwd_f64(ins, Q, grads)):
+        assert _rel_l2s([a], [b])[0] <= SSD_BWD_REL_L2, (name, _rel_l2s([a], [b]))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_ssd_backward_check_fails_a_dropped_in_decay_gradient(dev):
