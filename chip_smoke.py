@@ -91,11 +91,14 @@ exits non-zero; no phase's error is caught):
     flash launch on ``wgmma``; the loss of the first batch lower after the
     steps; two steps from one state give the same bits under
     ``torch.use_deterministic_algorithms``; one flash backward launch a
-    layer and step, on its ``wgmma`` route.  Also the backward's pieces timed
-    at the step's shapes: ``matmul_vjp`` (two kernel products) per
-    projection against cuBLAS; the flash forward there held against
-    ``attention_ref`` and timed (its backward is kernel_checks' first flash
-    backward case).
+    layer and step, on its ``wgmma`` route; the matmul backward's launches
+    one ``nt`` (dX) and one ``tn`` (dW) for each forward product.  Also the
+    backward's pieces timed at the step's shapes: ``matmul_vjp`` (two kernel
+    products, their operands read in place) per projection against cuBLAS
+    and against the parent design (transposes copied into the forward's
+    layout), with each product's layout, split and output tiles; the flash
+    forward there held against ``attention_ref`` and timed (its backward is
+    kernel_checks' first flash backward case).
 17. train_replay -- the same model, depth cut to 2 layers, trained 12 steps
     through ``launch.train.train`` twice (checkpoints every 5 steps to the
     temporary directory), once uninterrupted and once with failures
@@ -944,6 +947,7 @@ def reset_counts() -> None:
         kern.launches = 0
     for kern in (ltrf_matmul, flash_attention, flash_ops.flash_bwd):
         kern.launches_by_route = dict.fromkeys(kern.launches_by_route, 0)
+    ltrf_matmul.launches_by_layout = dict.fromkeys(ltrf_matmul.launches_by_layout, 0)
 
 
 def read_counts() -> dict:
@@ -952,10 +956,12 @@ def read_counts() -> dict:
 
 
 def read_backward() -> dict:
-    """The backward kernels' launches, under their forward kernel's name."""
+    """The backward kernels' launches, under their forward kernel's name, and
+    ``ltrf_matmul``'s launches by layout (nn forward, nt dX, tn dW)."""
     return {"flash_attention": flash_ops.flash_bwd.launches,
             "ssd_scan": ssd_ops.ssd_chunk_bwd.launches,
-            "flash_attention_by_route": dict(flash_ops.flash_bwd.launches_by_route)}
+            "flash_attention_by_route": dict(flash_ops.flash_bwd.launches_by_route),
+            "ltrf_matmul_by_layout": dict(ltrf_matmul.launches_by_layout)}
 
 
 def read_routes() -> dict:
@@ -1703,6 +1709,15 @@ def train_step_launches(cfg) -> dict:
             "ssd_scan": (1 + again) * fwd["ssd_scan"]}
 
 
+def train_step_layouts(cfg, steps: int) -> dict:
+    """``ltrf_matmul``'s launches of ``steps`` train steps by layout: the
+    forward and the recompute in nn, one nt (dX) and one tn (dW) for each
+    forward product."""
+    mm = forward_launches(cfg)["ltrf_matmul"]
+    return {"nn": steps * (train_step_launches(cfg)["ltrf_matmul"] - 2 * mm),
+            "nt": steps * mm, "tn": steps * mm}
+
+
 def eager_ms(fn, reps: int = 3) -> float:
     """Median device ms of ``fn`` launched from Python, between CUDA events
     (for calls too large or too dynamic to capture in a graph)."""
@@ -1755,31 +1770,59 @@ def planted_tile(t, transpose: bool):
     return t
 
 
+def backward_plan(M, K, N) -> dict:
+    """The kernel's plan of ``matmul_vjp``'s two products for x (M, K) and
+    w (K, N): each product's (M', K', N'), layout, tile width, K split and
+    output tiles."""
+    out = {}
+    for name, (m, k, n, layout) in (("dX", (M, N, K, "nt")), ("dW", (K, M, N, "tn"))):
+        bm, _, bn, stages = mm_ops.pick_blocks(m, k, n, 2, layout)
+        tiles = -(-m // bm) * -(-n // bn)
+        split = mm_ops.split_k(m, k, n, 2, layout)
+        out[name] = {"gemm": [m, k, n], "layout": layout, "bn": bn, "stages": stages,
+                     "split": split, "tiles": tiles, "ctas": min(tiles * split, mm_ops.NUM_SMS)}
+    return out
+
+
+def copied_vjp(x, w, dy):
+    """The parent design of ``matmul_vjp``, timed beside it: each transpose
+    copied, both products in the forward's layout."""
+    return mm_ops._product(dy, w.t().contiguous()), mm_ops._product(x.t().contiguous(), dy)
+
+
 def check_train_matmuls(cfg, dev) -> dict:
     """Every ``ltrf_matmul`` product of one train step at its shape, M = B x S
-    rows: the forward x @ w and ``matmul_vjp``'s dX = dY w^T and dW = x^T dY,
-    each held against ``matmul_ref`` on the same inputs (a planted zeroed or
-    transposed tile must fail each check); then ``matmul_vjp`` (with its
-    transposes' copies) timed against the same two products in cuBLAS and
-    their bound, summed over a step's launches; and the forward product,
-    kernel and cuBLAS, the same way."""
+    rows: the forward x @ w and ``matmul_vjp``'s dX = dY w^T (layout nt) and
+    dW = x^T dY (layout tn), each held against ``matmul_ref`` on the same
+    inputs (a planted zeroed or transposed tile must fail each check) and
+    launched twice for the same bits; then ``matmul_vjp`` (its operands read
+    in place) timed against the same two products in cuBLAS, against the
+    parent design (``copied_vjp``) and against their bound, summed over a
+    step's launches, each product also alone with its layout, split and
+    tiles; and the forward product, kernel and cuBLAS, the same way."""
     M, gen = TRAIN_B * TRAIN_S, torch.Generator(dev).manual_seed(11)
-    per_shape, tot = [], {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0,
+    per_shape, tot = [], {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "copied_ms": 0.0,
+                          "dX_ms": 0.0, "dW_ms": 0.0, "launches": 0,
                           "forward_ms": 0.0, "forward_library_ms": 0.0, "forward_bound_ms": 0.0}
     for (K, N), n in slice_matmuls(cfg):
         x = torch.randn(M, K, device=dev, generator=gen).bfloat16()
         w = (torch.randn(K, N, device=dev, generator=gen) / math.sqrt(K)).bfloat16()
         dy = (torch.randn(M, N, device=dev, generator=gen) / math.sqrt(N)).bfloat16()
         dx, dw = mm_ops.matmul_vjp(x, w, dy, (True, True))
+        again = mm_ops.matmul_vjp(x, w, dy, (True, True))
         products = {"forward": (ltrf_matmul(x, w), lambda: matmul_ref(x, w), False),
                     "dX": (dx, lambda: matmul_ref(dy, w.t()), True),
                     "dW": (dw, lambda: matmul_ref(x.t(), dy), False)}
-        rec = {"K": K, "N": N, "per_step": n}
+        rec = {"K": K, "N": N, "per_step": n, **backward_plan(M, K, N),
+               "same_bits_twice": bool(torch.equal(dx, again[0]) and torch.equal(dw, again[1]))}
+        check(rec["same_bits_twice"], f"train matmul backward at K={K}, N={N}: two launches differ")
+        del again
         for name, (got, plain, transpose) in products.items():
             want = plain()
             fault = "tile_transposed" if transpose else "tile_zeroed"
-            rec[name] = {**compare_train_product(got, want),
-                         fault: compare_train_product(planted_tile(got, transpose), want)}
+            rec.setdefault(name, {}).update({
+                **compare_train_product(got, want),
+                fault: compare_train_product(planted_tile(got, transpose), want)})
             check(rec[name]["within_tol"],
                   f"train matmul {name} at M={M}, K={K}, N={N} disagrees with plain: {rec}")
             check(not rec[name][fault]["within_tol"],
@@ -1789,15 +1832,21 @@ def check_train_matmuls(cfg, dev) -> dict:
         ms, _ = time_ms([lambda: mm_ops.matmul_vjp(x, w, dy, (True, True))], min_iters=5)
         lib, _ = time_ms([lambda: (torch.matmul(dy, w.t()), torch.matmul(x.t(), dy))],
                          min_iters=5)
+        copied, _ = time_ms([lambda: copied_vjp(x, w, dy)], min_iters=5)
+        rec["dX"]["ms"], _ = time_ms([lambda: mm_ops._product(dy, w, "nt")], min_iters=5)
+        rec["dW"]["ms"], _ = time_ms([lambda: mm_ops._product(x, dy, "tn")], min_iters=5)
         fwd, _ = time_ms([lambda: ltrf_matmul(x, w)], min_iters=5)
         fwd_lib, _ = time_ms([lambda: torch.matmul(x, w)], min_iters=5)
         b, by = bound(2 * (2 * M * K + 2 * K * N + 2 * M * N), 4 * M * K * N, torch.bfloat16)
-        rec.update({"ms": ms, "library_ms": lib, "bound_ms": b, "bound_by": by,
-                    "forward_ms": fwd, "forward_library_ms": fwd_lib})
+        rec.update({"ms": ms, "library_ms": lib, "copied_ms": copied, "bound_ms": b,
+                    "bound_by": by, "forward_ms": fwd, "forward_library_ms": fwd_lib})
         emit({"check": "ltrf_matmul_train", "M": M, **rec})
         per_shape.append(rec)
         tot["ms"] += n * ms
         tot["library_ms"] += n * lib
+        tot["copied_ms"] += n * copied
+        tot["dX_ms"] += n * rec["dX"]["ms"]
+        tot["dW_ms"] += n * rec["dW"]["ms"]
         tot["bound_ms"] += n * b
         tot["launches"] += 2 * n
         # the forward x @ w of a step's launches at this shape
@@ -1808,7 +1857,8 @@ def check_train_matmuls(cfg, dev) -> dict:
         del x, w, dy
     free_memory()
     return {**tot, "unit": f"the backward products of one {cfg.name} train step, "
-                           f"M = {M}, bf16", "shapes": per_shape}
+                           f"M = {M}, bf16 (copied_ms: the parent design, transposes "
+                           "copied)", "shapes": per_shape}
 
 
 def check_train_flash(cfg, dev) -> dict:
@@ -1924,6 +1974,9 @@ def phase_train_tinyllama(cfg, dev, seed) -> dict:
     check(backward["flash_attention"] == TRAIN_STEPS * cfg.n_layers
           == backward["flash_attention_by_route"]["wgmma"],
           f"train flash backward launches {backward}: one a layer and step, on wgmma")
+    check(backward["ltrf_matmul_by_layout"] == train_step_layouts(cfg, TRAIN_STEPS),
+          f"train matmul launches by layout {backward['ltrf_matmul_by_layout']}, want "
+          f"{train_step_layouts(cfg, TRAIN_STEPS)}: one nt and one tn a forward product")
     check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
           f"train losses or grad norms not finite: {out}")
     check(loss_after < loss_before, f"the first batch's loss did not fall: {out}")
@@ -2045,7 +2098,9 @@ def phase_train_grads(dev, seed) -> dict:
         "flash_attention": sum(r["flash_attention"] for r in runs),
         "ssd_scan": sum(r["ssd_scan"] for r in runs),
         "flash_attention_by_route": {k: sum(r["flash_attention_by_route"][k] for r in runs)
-                                     for k in flash_ops.BWD_ROUTES.values()}}
+                                     for k in flash_ops.BWD_ROUTES.values()},
+        "ltrf_matmul_by_layout": {k: sum(r["ltrf_matmul_by_layout"][k] for r in runs)
+                                  for k in mm_ops.LAYOUTS}}
     for arch, name in ((ARCH, "flash_attention"), (SSM_ARCH, "ssd_scan")):
         for dt in ("bfloat16", "float32"):
             got = out[arch][dt]["backward_launches"][name]
@@ -2898,6 +2953,8 @@ def mesh_train(cfg, dev, seed, rules) -> tuple:
     check(counts == want, f"mesh train launches {counts}, want {want}")
     check(backward["flash_attention"] == MESH_STEPS * cfg.n_layers,
           f"mesh train flash backward launches {backward}: one a layer and step")
+    check(backward["ltrf_matmul_by_layout"] == train_step_layouts(cfg, MESH_STEPS),
+          f"mesh train matmul launches by layout {backward['ltrf_matmul_by_layout']}")
     check(same and out["bit_identical_metrics"],
           f"mesh: the train steps under the rules differ from the steps without: {out}")
     return out, counts, routes
@@ -3024,6 +3081,10 @@ def kernels_line(cfgs, checks, paths, routes, trained, grads, bwd_paths) -> dict
          "source": "src/repro_torch/csrc/ltrf_matmul.cu",
          "replaces": "src/repro/kernels/ltrf_matmul/kernel.py:48",
          "launches": launches["ltrf_matmul"], "launches_by_route": by_route["ltrf_matmul"],
+         "launches_by_layout": {k: sum(p["ltrf_matmul_by_layout"][k] for p in bwd_paths.values())
+                                for k in mm_ops.LAYOUTS},
+         "launches_by_layout_over": (f"the training paths {sorted(bwd_paths)}; every prefill "
+                                     "and serve launch is nn"),
          "max_abs_err": max(r["max_abs_err"] for r in mm.values()),
          "ms": tiny["decode_m8"]["ms"], "plain_ms": tiny["decode_m8"]["plain_ms"],
          "bound_ms": tiny["decode_m8"]["bound_ms"], "bound_by": tiny["decode_m8"]["bound_by"],
@@ -3038,7 +3099,8 @@ def kernels_line(cfgs, checks, paths, routes, trained, grads, bwd_paths) -> dict
          "mixes": mixes, "launches_by_path": {k: p["ltrf_matmul"] for k, p in paths.items()},
          "training": {"launches_per_step": trained["launches_per_step"]["ltrf_matmul"],
                       "launches_by_route": trained["launches_by_route"]["ltrf_matmul"],
-                      "backward": "two kernel products (matmul_vjp)",
+                      "backward": ("two kernel products (matmul_vjp): dX in layout nt, dW "
+                                   "in tn, operands read in place"),
                       "backward_per_step": {k: v for k, v in trained["matmul_backward"].items()
                                             if k != "shapes"}}},
         {"name": "flash_attention", "route": "cuda",

@@ -275,20 +275,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // wgmma m64nNk16, bf16 inputs, fp32 accumulators d (N / 2 a thread):
-// wgmma_ss_nN reads A and B through descriptors (TRANS_B = 1: B is MN-major);
+// wgmma_ss_nN reads A and B through descriptors (TRANS_B = 1: B is MN-major;
+// TRANS_A = 1: A is MN-major, its 64 rows contiguous);
 // wgmma_rs_nN takes A from registers (the m16n8k16 A fragment of the warp's
 // 16 rows) and an MN-major B.  scale_d = 0 overwrites d, 1 accumulates.
 // Accumulator layout: d[j] holds row 16 * warp + lane / 4 + 8 * ((j / 2) % 2)
 // and column 8 * (j / 4) + 2 * (lane % 4) + j % 2 of the warpgroup's 64 rows.
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -297,19 +298,19 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // The same with scale_d = 0 (d = a b): d's old values are not read, so the
 // compiler may reuse their registers before the first k16 step.
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
         "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
         "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
@@ -318,10 +319,10 @@ __device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da, 
         "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
         "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
         "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
-      : "l"(da), "l"(db), "r"(0), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(0), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -330,7 +331,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -347,10 +348,10 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -363,7 +364,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -396,7 +397,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
@@ -535,12 +536,12 @@ __device__ __forceinline__ void wgmma_ss_tn(float (&d)[N / 2], uint64_t da, uint
   else wgmma_ss_tn_n64(d, da, db, scale_d);
 }
 
-template <int N, int TRANS_B>
+template <int N, int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
   static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss: N is 64, 128 or 256");
-  if constexpr (N == 64) wgmma_ss_n64<TRANS_B>(d, da, db, scale_d);
-  else if constexpr (N == 128) wgmma_ss_n128<TRANS_B>(d, da, db, scale_d);
-  else wgmma_ss_n256<TRANS_B>(d, da, db, scale_d);
+  if constexpr (N == 64) wgmma_ss_n64<TRANS_B, TRANS_A>(d, da, db, scale_d);
+  else if constexpr (N == 128) wgmma_ss_n128<TRANS_B, TRANS_A>(d, da, db, scale_d);
+  else wgmma_ss_n256<TRANS_B, TRANS_A>(d, da, db, scale_d);
 }
 
 template <int N>

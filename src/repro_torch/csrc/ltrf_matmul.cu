@@ -17,9 +17,10 @@
 // on the current ones.  One CTA owns one output tile and streams its column
 // of weight tiles through the ring, whose depth is the num_slots of the
 // validated per-CTA IntervalPlan the wrapper builds (repro_torch/core/plan.py).
-// Three routes, chosen by the wrapper from dtype and M:
+// Three routes, chosen by the wrapper from dtype, M and the operands' layout:
 //
-// wgmma (bf16, M > 64; prefill).  A 128 x BN tile (BN = 128 or 256) over BK =
+// wgmma (bf16, M > 64, and the backward's layouts at every M; prefill and
+// training).  A 128 x BN tile (BN = 128 or 256) over BK =
 // 64 stages.  A producer warpgroup (registers handed to the consumers with
 // setmaxnreg; one thread issues) keeps TMA loads of the x tile (K-major) and
 // of the weight tile (N-major, as w lies in HBM: no transpose or copy) in
@@ -39,6 +40,12 @@
 // tinyllama-1.1b's prefill mix (155 launches at M = 2048) takes 6.47 ms
 // against a 4.28 ms bound, 66 % (cuBLAS: 6.25 ms); mamba2-1.3b's 65 % and
 // zamba2-1.2b's 74 %.
+// The same route runs the backward's two products with their operands as
+// they lie (layouts nt and tn: dX = dY w^T reads w K-major, dW = x^T dY reads
+// x with wgmma's A transpose bit), and splits the reduction of products with
+// too few output tiles over a fixed-order sum: see the section below.  A
+// tinyllama-1.1b train step's 310 backward launches (M = 8192) take 47.9 ms
+// against a 34.5 ms bound (cuBLAS: 46.1 ms).
 //
 // decode (bf16, M <= 64; serving).  The product swapped (the weight is
 // wgmma's A operand, the few rows of x its B), K split so that every shape
@@ -422,47 +429,72 @@ ltrf_matmul_decode(const __grid_constant__ CUtensorMap tx, const __grid_constant
 }
 
 // ---------------------------------------------------------------- wgmma route
+//
+// Three operand layouts, all out(M, N) = op(a) . op(b) summed over K, each
+// operand read in place from HBM by TMA (no transpose, no copy):
+//   nn, the forward:          a = x  (M x K, K-major),  b = w  (K x N, N-major)
+//   nt, dX = dY w^T:          a = dY (M x K, K-major),  b = w  (N x K, K-major)
+//   tn, dW = x^T dY:          a = x  (K x M, M-major),  b = dY (K x N, N-major)
+// An MN-major operand is read with wgmma's transpose bit from 64-column,
+// 128-byte swizzled boxes (b of nn and tn, a of tn: two boxes of 64 rows, one
+// per consumer); a K-major one from boxes of 64 K values a row (a of nn and
+// nt, b of nt), the bit off.  The backward's reduction runs over the M rows
+// of x and dY, which are the TMA maps' outer dimension, so its ragged end is
+// TMA's zero fill and no row count is padded.
+//
+// Split reduction (nt and tn only; the wrapper's split_k): where the output
+// tiles are too few to fill the card, the K blocks are cut into `split`
+// slices, one work unit a (tile, slice); each unit writes its fp32 partial to
+// a workspace and bumps its tile's counter, and the unit that arrives last
+// sums the slices in the fixed order 0 .. split-1, rounds once and stores the
+// tile, then sets the counter back to 0.  No float atomics: two launches give
+// the same bits.
 
+constexpr int kLayoutNN = 0, kLayoutNT = 1, kLayoutTN = 2;
 constexpr int kWgBM = 128;                 // two consumer warpgroups of 64 rows
 constexpr int kWgBK = 64;                  // one 128-byte swizzled row of bf16
 constexpr int kWgThreads = 384;            // producer warpgroup + 2 consumers
 constexpr int kXTileBytes = kWgBM * kWgBK * 2;
-constexpr int kWBoxBytes = kWgBK * 64 * 2;  // one 64-column box of the weight tile
+constexpr int kWBoxBytes = kWgBK * 64 * 2;  // one 64 x 64 box of an operand tile
 constexpr int kOutBoxBytes = 64 * 64 * 2;   // one 64 x 64 box of the output
 constexpr int kStagingBytes = 2 * kOutBoxBytes;  // per consumer: 64 rows x 128 columns
 
 template <int BN>
 __host__ __device__ constexpr int wgmma_stage_bytes() { return kXTileBytes + (BN / 64) * kWBoxBytes; }
 
+// the ring and its barriers, the staging boxes and the split's flag
 template <int BN>
 size_t wgmma_smem_bytes(int stages) {
   return 1024 + (size_t)stages * (wgmma_stage_bytes<BN>() + 2 * sizeof(uint64_t)) +
-         2 * kStagingBytes;
+         2 * kStagingBytes + 16;
 }
 
-// Stage s of the ring: the x tile (128 rows x 128 B, K-major), then BN / 64
-// weight boxes (64 K rows x 128 B of N each, N-major).  Each consumer's
-// output staging (two 64 x 64 boxes, 128-byte swizzled) and the barriers
-// follow the ring.  The grid is persistent: CTA b takes output tiles b,
-// b + gridDim.x, ..., and the ring runs on across them, so the producer
-// fills the next tile's stages while the consumers store the last one, and
-// the consumers go on while TMA writes their staged output.  Tiles are
-// numbered M-tile fastest, so the CTAs working at one time share their
-// weight tiles and each is read from HBM about once.
-template <int BN>
+// Stage s of the ring: the a tile (128 M rows x 64 K values, 16 KB), then
+// BN / 64 boxes of the b tile (64 x 64 each).  Each consumer's output staging
+// (two 64 x 64 boxes, 128-byte swizzled) and the barriers follow the ring.
+// The grid is persistent: CTA b takes work units b, b + gridDim.x, ..., and
+// the ring runs on across them, so the producer fills the next unit's stages
+// while the consumers store the last one, and the consumers go on while TMA
+// writes their staged output.  Units are numbered M-tile fastest (then N-tile,
+// then slice), so the CTAs working at one time share their b tiles and each
+// is read from HBM about once.
+template <int BN, int LAYOUT>
 __global__ void __launch_bounds__(kWgThreads, 1)
-ltrf_matmul_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
-                  const __grid_constant__ CUtensorMap tout, int M, int K, int N, int stages) {
+ltrf_matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                  const __grid_constant__ CUtensorMap tout, float* __restrict__ partials,
+                  int* __restrict__ counters, int M, int K, int N, int split, int stages) {
   constexpr int kStage = wgmma_stage_bytes<BN>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* staging = smem + (size_t)stages * kStage;
   uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * kStagingBytes);
   uint64_t* empty = full + stages;
+  int* last_unit = reinterpret_cast<int*>(empty + stages);
 
   const int wg = threadIdx.x / 128;
   const int m_tiles = (M + kWgBM - 1) / kWgBM;
   const int n_tiles = m_tiles * ((N + BN - 1) / BN);
+  const int n_units = n_tiles * split;
   const int n_k = (K + kWgBK - 1) / kWgBK;
 
   if (threadIdx.x == 0) {
@@ -480,19 +512,31 @@ ltrf_matmul_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant_
     regs_dealloc<24>();
     if (threadIdx.x == 0) {
       int it = 0;
-      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      for (int unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
+        const int tile = unit % n_tiles, slice = unit / n_tiles;
         const int m0 = (tile % m_tiles) * kWgBM;
         const int n0 = (tile / m_tiles) * BN;
-        for (int kt = 0; kt < n_k; ++kt, ++it) {
+        const int kb1 = (int)((long long)(slice + 1) * n_k / split);
+        for (int kt = (int)((long long)slice * n_k / split); kt < kb1; ++kt, ++it) {
           const int s = it % stages;
           if (it >= stages) mbar_wait(&empty[s], ((it / stages) + 1) & 1);
           unsigned char* st = smem + (size_t)s * kStage;
           mbar_expect_tx(&full[s], kStage);
-          tma_load_2d(st, &tx, &full[s], kt * kWgBK, m0);
+          if constexpr (LAYOUT == kLayoutTN) {
+            tma_load_2d(st, &ta, &full[s], m0, kt * kWgBK);
+            tma_load_2d(st + kXTileBytes / 2, &ta, &full[s], m0 + 64, kt * kWgBK);
+          } else {
+            tma_load_2d(st, &ta, &full[s], kt * kWgBK, m0);
+          }
 #pragma unroll
-          for (int b = 0; b < BN / 64; ++b)
-            tma_load_2d(st + kXTileBytes + b * kWBoxBytes, &tw, &full[s], n0 + b * 64,
-                        kt * kWgBK);
+          for (int b = 0; b < BN / 64; ++b) {
+            if constexpr (LAYOUT == kLayoutNT)
+              tma_load_2d(st + kXTileBytes + b * kWBoxBytes, &tb, &full[s], kt * kWgBK,
+                          n0 + b * 64);
+            else
+              tma_load_2d(st + kXTileBytes + b * kWBoxBytes, &tb, &full[s], n0 + b * 64,
+                          kt * kWgBK);
+          }
         }
       }
     }
@@ -503,29 +547,68 @@ ltrf_matmul_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant_
     unsigned char* stage_out = staging + c * kStagingBytes;
     float acc[BN / 2];
     int it = 0;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    for (int unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
+      const int tile = unit % n_tiles, slice = unit / n_tiles;
       const int m0 = (tile % m_tiles) * kWgBM;
       const int n0 = (tile / m_tiles) * BN;
-      for (int kt = 0; kt < n_k; ++kt, ++it) {
+      const int kb0 = (int)((long long)slice * n_k / split);
+      const int kb1 = (int)((long long)(slice + 1) * n_k / split);
+      for (int kt = kb0; kt < kb1; ++kt, ++it) {
         const int s = it % stages;
         mbar_wait(&full[s], (it / stages) & 1);
         const uint32_t xa = smem_u32(smem + (size_t)s * kStage) + c * 64 * 128;
         const uint32_t wb = smem_u32(smem + (size_t)s * kStage + kXTileBytes);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kWgBK / 16; ++kk)   // the tile's first product overwrites
-          wgmma_ss<BN, 1>(acc, desc_kmajor(xa, kWgBM, 128, kk),
-                          desc_mnmajor(wb, kWgBK, 128, kk), kt > 0 || kk > 0);
+        for (int kk = 0; kk < kWgBK / 16; ++kk) {   // the unit's first product overwrites
+          const uint64_t da = LAYOUT == kLayoutTN ? desc_mnmajor(xa, kWgBK, 128, kk)
+                                                  : desc_kmajor(xa, kWgBM, 128, kk);
+          const uint64_t db = LAYOUT == kLayoutNT ? desc_kmajor(wb, BN, 128, kk)
+                                                  : desc_mnmajor(wb, kWgBK, 128, kk);
+          wgmma_ss<BN, LAYOUT != kLayoutNT, LAYOUT == kLayoutTN>(acc, da, db,
+                                                                 kt > kb0 || kk > 0);
+        }
         wgmma_commit();
         // keep this stage's products in flight; the previous stage's are
         // done, so its slot goes back to the producer
         wgmma_wait<1>();
         fence_regs(acc);
-        if (kt > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(it - 1) % stages]);
+        if (kt > kb0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(it - 1) % stages]);
       }
       wgmma_wait<0>();
       fence_regs(acc);
       if (threadIdx.x % 128 == 0) mbar_arrive(&empty[(it - 1) % stages]);
+
+      if constexpr (LAYOUT != kLayoutNN) {
+        if (split > 1) {
+          // this unit's fp32 partial, 16 bytes a thread side by side (a
+          // warp's stores cover 512 contiguous bytes), then the tile's count
+          const size_t rows = (size_t)kWgBM * BN, part = (size_t)c * 64 * BN + 4 * wtid;
+          float* mine = partials + (size_t)unit * rows + part;
+#pragma unroll
+          for (int j = 0; j < BN / 2; j += 4)
+            *reinterpret_cast<float4*>(mine + 128 * j) =
+                make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+          __threadfence();                 // the partial before the count
+          named_barrier(3, 256);
+          if (threadIdx.x == 128) *last_unit = atomicAdd(&counters[tile], 1) == split - 1;
+          named_barrier(3, 256);
+          if (!*last_unit) continue;
+          __threadfence();
+          // the slices in the fixed order 0 .. split-1
+#pragma unroll
+          for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+          for (int sl = 0; sl < split; ++sl) {
+            const float* p = partials + (size_t)(sl * n_tiles + tile) * rows + part;
+#pragma unroll
+            for (int j = 0; j < BN / 2; j += 4) {
+              const float4 v = __ldcg(reinterpret_cast<const float4*>(p + 128 * j));
+              acc[j] += v.x; acc[j + 1] += v.y; acc[j + 2] += v.z; acc[j + 3] += v.w;
+            }
+          }
+          if (threadIdx.x == 128) counters[tile] = 0;
+        }
+      }
 
       // epilogue, 128 columns at a time: round into the staging boxes (as
       // TMA swizzles them, so the writes miss no bank), then one thread
@@ -568,30 +651,48 @@ int num_sms() {
   return n;
 }
 
-template <int BN>
-cudaError_t launch_wgmma(const void* x, const void* w, void* out, int M, int K, int N,
-                         int stages, cudaStream_t stream) {
-  CUtensorMap tx, tw, tout;
-  const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
-  const cuuint64_t x_strides[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t x_box[2] = {kWgBK, kWgBM};
-  const cuuint64_t w_dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
-  const cuuint64_t w_strides[1] = {(cuuint64_t)N * 2};
-  const cuuint32_t w_box[2] = {64, kWgBK};
+// The product's M, K, N; a and b as the layout lays them out (see above).
+template <int BN, int LAYOUT>
+cudaError_t launch_wgmma(const void* a, const void* b, void* out, void* partials, void* counters,
+                         int M, int K, int N, int split, int stages, cudaStream_t stream) {
+  constexpr bool kTransA = LAYOUT == kLayoutTN, kKMajorB = LAYOUT == kLayoutNT;
+  CUtensorMap ta, tb, tout;
+  // a: M x K K-major (rows of K values) or, for tn, K x M (rows of M values)
+  const cuuint64_t a_dims[2] = {(cuuint64_t)(kTransA ? M : K), (cuuint64_t)(kTransA ? K : M)};
+  const cuuint64_t a_strides[1] = {(cuuint64_t)(kTransA ? M : K) * 2};
+  const cuuint32_t a_box[2] = {kWgBK, kTransA ? 64u : (cuuint32_t)kWgBM};
+  // b: K x N (rows of N values) or, for nt, N x K (rows of K values)
+  const cuuint64_t b_dims[2] = {(cuuint64_t)(kKMajorB ? K : N), (cuuint64_t)(kKMajorB ? N : K)};
+  const cuuint64_t b_strides[1] = {(cuuint64_t)(kKMajorB ? K : N) * 2};
+  const cuuint32_t b_box[2] = {64, kWgBK};
   const cuuint64_t out_dims[2] = {(cuuint64_t)N, (cuuint64_t)M};
+  const cuuint64_t out_strides[1] = {(cuuint64_t)N * 2};
   const cuuint32_t out_box[2] = {64, 64};
-  if (!make_tmap(&tx, x, 2, x_dims, x_strides, x_box, 128) ||
-      !make_tmap(&tw, w, 2, w_dims, w_strides, w_box, 128) ||
-      !make_tmap(&tout, out, 2, out_dims, w_strides, out_box, 128))
+  if (!make_tmap(&ta, a, 2, a_dims, a_strides, a_box, 128) ||
+      !make_tmap(&tb, b, 2, b_dims, b_strides, b_box, 128) ||
+      !make_tmap(&tout, out, 2, out_dims, out_strides, out_box, 128))
     return cudaErrorInvalidValue;
   const size_t smem = wgmma_smem_bytes<BN>(stages);
   if (smem > (size_t)kSmemPerBlock) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<ltrf_matmul_wgmma<BN>>();
+  cudaError_t err = allow_smem<ltrf_matmul_wgmma<BN, LAYOUT>>();
   if (err != cudaSuccess) return err;
-  const int tiles = ((M + kWgBM - 1) / kWgBM) * ((N + BN - 1) / BN);
-  ltrf_matmul_wgmma<BN><<<tiles < num_sms() ? tiles : num_sms(), kWgThreads, smem, stream>>>(
-      tx, tw, tout, M, K, N, stages);
+  const int units = ((M + kWgBM - 1) / kWgBM) * ((N + BN - 1) / BN) * split;
+  const int grid = units < num_sms() ? units : num_sms();
+  ltrf_matmul_wgmma<BN, LAYOUT><<<grid, kWgThreads, smem, stream>>>(
+      ta, tb, tout, static_cast<float*>(partials), static_cast<int*>(counters), M, K, N, split,
+      stages);
   return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_wgmma_layout(int layout, const void* a, const void* b, void* out,
+                                void* partials, void* counters, int M, int K, int N, int split,
+                                int stages, cudaStream_t s) {
+  if (layout == kLayoutNT)
+    return launch_wgmma<BN, kLayoutNT>(a, b, out, partials, counters, M, K, N, split, stages, s);
+  if (layout == kLayoutTN)
+    return launch_wgmma<BN, kLayoutTN>(a, b, out, partials, counters, M, K, N, split, stages, s);
+  return launch_wgmma<BN, kLayoutNN>(a, b, out, partials, counters, M, K, N, split, stages, s);
 }
 
 template <int MP>
@@ -636,17 +737,26 @@ cudaError_t launch_decode(const void* x, const void* w, void* out, void* partial
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  (bm, bk, bn) must be one of the tile
-// shapes pick_blocks returns; anything else is refused before launch.  The
-// decode route (bf16, bk = 32, bn = 64) also takes the K split (1 .. number
-// of 32-row K blocks) and, when split > 8, an fp32 workspace of
-// ceil(N / 64) * split * 64 * bm floats and ceil(N / 64) int counters that
-// are 0 (and are 0 again when the launch ends).  Other routes take split = 1.
-// Returns the launch's cudaError_t (0 on success).
+// shapes pick_blocks returns; anything else is refused before launch.
+// layout: 0 = nn (out = x . w), 1 = nt (out = a . b^T), 2 = tn (out = a^T . b),
+// with M, K, N the product's and each operand row-major as it lies; nt and
+// tn only on the wgmma tiles.  split: the decode route (bf16, bk = 32, bn =
+// 64) takes 1 .. the number of 32-row K blocks and, when split > 8, an fp32
+// workspace of ceil(N / 64) * split * 64 * bm floats; the wgmma route's nt
+// and tn take 1 .. the number of 64-row K blocks and, when split > 1, a
+// workspace of tiles * split * 128 * bn floats.  Both take ceil(N / 64) (or
+// tiles) int counters that are 0 (and are 0 again when the launch ends).
+// Other routes and layouts take split = 1.  Returns the launch's cudaError_t
+// (0 on success).
 extern "C" int ltrf_matmul_launch(const void* x, const void* w, void* out, int M, int K, int N,
                                   int dtype, int bm, int bk, int bn, int stages, int split,
-                                  void* partials, void* counters, void* stream) {
-  if (stages < 2 || M <= 0 || K <= 0 || N <= 0 || split < 1) return cudaErrorInvalidValue;
+                                  void* partials, void* counters, int layout, void* stream) {
+  if (stages < 2 || M <= 0 || K <= 0 || N <= 0 || split < 1 || layout < kLayoutNN ||
+      layout > kLayoutTN)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wgmma_tiles = dtype == 1 && bm == kWgBM && bk == kWgBK && (bn == 128 || bn == 256);
+  if (layout != kLayoutNN && !wgmma_tiles) return cudaErrorInvalidValue;
   if (dtype == 1 && bk == kDecBK && bn == kDecBN) {
     if (stages > kDecMaxStages || M > bm || split > (K + kDecBK - 1) / kDecBK ||
         (split > kDecMaxCluster && (!partials || !counters)))
@@ -659,13 +769,19 @@ extern "C" int ltrf_matmul_launch(const void* x, const void* w, void* out, int M
       default: return cudaErrorInvalidValue;
     }
   }
-  if (stages > kMaxStages || split != 1) return cudaErrorInvalidValue;
-  if (dtype == 1) {
-    if (bm == kWgBM && bk == kWgBK && bn == 128)
-      return launch_wgmma<128>(x, w, out, M, K, N, stages, s);
-    if (bm == kWgBM && bk == kWgBK && bn == 256)
-      return launch_wgmma<256>(x, w, out, M, K, N, stages, s);
-  } else if (dtype == 0) {
+  if (stages > kMaxStages) return cudaErrorInvalidValue;
+  if (wgmma_tiles) {
+    // the forward is never split; a split backward needs its workspace
+    if (split > (K + kWgBK - 1) / kWgBK ||
+        (split > 1 && (layout == kLayoutNN || !partials || !counters)))
+      return cudaErrorInvalidValue;
+    return bn == 128 ? launch_wgmma_layout<128>(layout, x, w, out, partials, counters, M, K, N,
+                                                split, stages, s)
+                     : launch_wgmma_layout<256>(layout, x, w, out, partials, counters, M, K, N,
+                                                split, stages, s);
+  }
+  if (split != 1) return cudaErrorInvalidValue;
+  if (dtype == 0) {
     if (bm == 128 && bk == 32 && bn == 128)
       return launch<float, 128, 128, 32, 2, 4>(x, w, out, M, K, N, stages, s);
     if (bk == 64 && bn == 32)

@@ -9,21 +9,28 @@ take raises.  The kernel reads only the plan's ``num_slots`` (which is
 ``pick_blocks``' depth); its intervals and slot colouring are not used yet, as
 the ring is filled round-robin.
 
-The route follows from dtype and M alone (``route``): ``"wgmma"`` for bf16
-with M > 64 (prefill: TMA ring feeding wgmma), ``"decode"`` for bf16 with
-M <= 64 (the product swapped so the weight is wgmma's A operand, K split over
-``split_k`` CTAs a tile, TMA ring, fp32 partials summed in a fixed order
-inside a thread block cluster, or past 8 slices by the last CTA of each tile)
-and ``"fp32"`` for float32 (cp.async ring, FFMA).
-``ltrf_matmul.launches`` counts the launches and
-``ltrf_matmul.launches_by_route`` counts them per route.
+The route follows from dtype, M and the operands' layout (``route``):
+``"wgmma"`` for bf16 with M > 64 or a backward layout (TMA ring feeding
+wgmma), ``"decode"`` for a bf16 forward with M <= 64 (the product swapped
+so the weight is wgmma's A operand, K split over ``split_k`` CTAs a tile,
+TMA ring, fp32 partials summed in a fixed order inside a thread block
+cluster, or past 8 slices by the last CTA of each tile) and ``"fp32"`` for
+float32 (cp.async ring, FFMA).
+``ltrf_matmul.launches`` counts the launches,
+``ltrf_matmul.launches_by_route`` counts them per route and
+``ltrf_matmul.launches_by_layout`` per operand layout (``LAYOUTS``).
 
 Gradients: where grad is enabled and an operand requires it, the product
 runs inside ``LtrfMatmulFn`` (a ``torch.autograd.Function``), whose backward
-is the two products of a matmul on the same wrapper: ``dX = dY @ w^T``
-(M x N @ N x K) and ``dW = x^T @ dY`` (K x M @ M x N).  The kernel takes
-contiguous operands, so each transpose is copied first.  On CPU tensors the
-Function's forward and backward run ``matmul_ref`` through the same wrapper.
+is the two products of a matmul on the same kernel: ``dX = dY @ w^T``
+(layout ``nt``: w is read K-major, as it lies) and ``dW = x^T @ dY`` (layout
+``tn``: x is read with wgmma's A transpose bit), with no transpose copied and
+no row padded.  A backward product with too few output tiles to fill the
+card has its reduction (the M rows) split over ``split_k`` CTAs a tile and
+summed in a fixed order.  The fp32 route has no backward layouts: there each
+transpose is still copied (and dW's rows padded to 16 bytes) before an
+``nn`` launch.  On CPU tensors the Function's forward and backward run
+``matmul_ref`` through the same wrapper.
 """
 from __future__ import annotations
 
@@ -59,15 +66,27 @@ WORKSPACE_CTAS = 2 * NUM_SMS
 # the swizzled tiles, the consumers' output staging (2 x 64 x 128 bf16) and
 # the ring's full and empty mbarriers
 WGMMA_RESERVE = 34 * 1024
+# a split backward product: each K slice at least this many 64-row blocks, so
+# the slice's partial (written once, read once by the tile's last CTA) stays
+# a small part of its stream
+WGMMA_MIN_SLICE_BLOCKS = 8
+# the workspace of fp32 partials, shared by the decode route's splits of more
+# than DECODE_MAX_CLUSTER slices (WORKSPACE_CTAS tiles of 64 x 64) and the
+# wgmma route's split backward products (at most NUM_SMS units of 128 x 256)
+WORKSPACE_FLOATS = max(WORKSPACE_CTAS * DECODE_BN * 64, NUM_SMS * 128 * 256)
 ROUTES = ("wgmma", "decode", "fp32")
+# out = op(a) @ op(b): nn the forward x @ w, nt dX = dY @ w^T, tn dW = x^T @ dY
+LAYOUTS = ("nn", "nt", "tn")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def route(M: int, dtype_bytes: int = 2) -> str:
-    """The kernel route for M rows of this dtype (see the module docstring)."""
+def route(M: int, dtype_bytes: int = 2, layout: str = "nn") -> str:
+    """The kernel route for a product of M output rows of this dtype in this
+    layout (see the module docstring): the backward layouts take the wgmma
+    route at every M."""
     if dtype_bytes == 4:
         return "fp32"
-    return "decode" if M <= 64 else "wgmma"
+    return "decode" if M <= 64 and layout == "nn" else "wgmma"
 
 
 def stage_bytes(bm: int, bk: int, bn: int, dtype_bytes: int,
@@ -109,17 +128,27 @@ def decode_gather_bytes(bm: int, split: int) -> int:
     return (split - 1) * DECODE_BN * bm * 4 if 1 < split <= DECODE_MAX_CLUSTER else 0
 
 
-def split_k(M: int, K: int, N: int, dtype_bytes: int = 2) -> int:
-    """The number of K slices (CTAs) per 64-column output tile.
+def split_k(M: int, K: int, N: int, dtype_bytes: int = 2, layout: str = "nn") -> int:
+    """The number of K slices (CTAs) per output tile of the product (M, K, N).
 
     Decode (bf16, M <= 64) is bound by the weight bytes, which must be in
     flight on every SM: when the ceil(N / 64) tiles are fewer than NUM_SMS,
     K is split so that tiles x split >= NUM_SMS, up to one 32-row K block a
     CTA.  Tiles that cover the card once but not twice are split in two, so
     that no SM streams two whole tiles while others stream one (mamba2-1.3b's
-    in_proj has 133).  Every other route takes 1.
+    in_proj has 133).
+    The wgmma route's backward products (``nt``, ``tn``) with at most half a
+    wave of output tiles split K into as many slices as keep tiles x split
+    within one wave of NUM_SMS CTAs, each slice at least
+    WGMMA_MIN_SLICE_BLOCKS 64-row blocks deep: dW of a 256-wide projection at
+    M = 8192 (32 tiles, K = 8192) takes 4.  The forward (``nn``) and the fp32
+    route take 1.
     """
-    if route(M, dtype_bytes) != "decode":
+    kind = route(M, dtype_bytes, layout)
+    if kind == "wgmma" and layout != "nn":
+        tiles = -(-M // 128) * -(-N // _wgmma_bn(M, N))
+        return max(1, min(NUM_SMS // tiles, -(-K // 64) // WGMMA_MIN_SLICE_BLOCKS))
+    if kind != "decode":
         return 1
     tiles, n_kb = -(-N // DECODE_BN), -(-K // DECODE_BK)
     if tiles >= 2 * NUM_SMS:
@@ -141,13 +170,14 @@ def _decode_stages(bm: int, split: int, blocks: int, tiles: int) -> int:
     return 2
 
 
-def pick_blocks(M: int, K: int, N: int,
-                dtype_bytes: int = 2) -> tuple[int, int, int, int]:
+def pick_blocks(M: int, K: int, N: int, dtype_bytes: int = 2,
+                layout: str = "nn") -> tuple[int, int, int, int]:
     """(bm, bk, bn, stages) for one CTA of the kernel.
 
-    wgmma (bf16, M > 64): 128 x 128 or 128 x 256 output tiles (``_wgmma_bn``)
-    fed 64 deep; the ring takes as many stages (up to MAX_STAGES) as fit in one
-    CTA's shared memory beside ``WGMMA_RESERVE``, one CTA an SM.
+    wgmma (bf16, M > 64 or a backward layout): 128 x 128 or 128 x 256
+    output tiles (``_wgmma_bn``) fed 64 deep; the ring takes as many stages
+    (up to MAX_STAGES) as fit in one CTA's shared memory beside
+    ``WGMMA_RESERVE``, one CTA an SM.
     Decode (bf16, M <= 64): one M-tile of M rows padded to 8, 16, 32 or 64
     covers every row, so each weight byte is read from HBM once; 64 output
     columns a CTA, 32 K rows a stage, and as many stages as the CTA's K slice
@@ -159,7 +189,7 @@ def pick_blocks(M: int, K: int, N: int,
     (2..MAX_STAGES) as fit in half of ``SMEM_PER_CTA``, so two CTAs can share
     an SM.
     """
-    kind = route(M, dtype_bytes)
+    kind = route(M, dtype_bytes, layout)
     if kind == "wgmma":
         bm, bk, bn = 128, 64, _wgmma_bn(M, N)
         per_stage = stage_bytes(bm, bk, bn, dtype_bytes, swizzled=True)
@@ -181,23 +211,24 @@ def pick_blocks(M: int, K: int, N: int,
     return bm, bk, bn, stages
 
 
-@lru_cache(maxsize=128)
-def matmul_plan(M: int, K: int, N: int, dtype_bytes: int = 2
+@lru_cache(maxsize=256)
+def matmul_plan(M: int, K: int, N: int, dtype_bytes: int = 2, layout: str = "nn"
                 ) -> tuple[IntervalPlan, tuple[int, int, int]]:
     """The validated per-CTA IntervalPlan of this matmul's weight stream.
 
     One CTA streams its column of weight tiles (bk x bn) -- all ceil(K / bk)
-    of them, or on the decode route the longest of its ``split_k`` K slices
-    -- through a ring of ``stages`` shared-memory slots (``pick_blocks`` sets
-    the depth); the plan's budget is that CTA's ring and its ``num_slots`` is
-    that depth, which the kernel is launched with.  Planning the whole matrix
-    instead would be a plan of every CTA's stream at once, which costs
-    seconds per shape.  Memoized per shape and dtype, which fix the split.
+    of them, or where K is split (the decode route, a split backward product)
+    the longest of its ``split_k`` K slices -- through a ring of ``stages``
+    shared-memory slots (``pick_blocks`` sets the depth); the plan's budget
+    is that CTA's ring and its ``num_slots`` is that depth, which the kernel
+    is launched with.  Planning the whole matrix instead would be a plan of
+    every CTA's stream at once, which costs seconds per shape.  Memoized per
+    shape, dtype and layout, which fix the split.
     """
-    bm, bk, bn, stages = pick_blocks(M, K, N, dtype_bytes)
-    kind = route(M, dtype_bytes)
+    bm, bk, bn, stages = pick_blocks(M, K, N, dtype_bytes, layout)
+    kind = route(M, dtype_bytes, layout)
     per_stage = stage_bytes(bm, bk, bn, dtype_bytes, swizzled=kind != "fp32")
-    k_slice = -(-(-(-K // bk)) // split_k(M, K, N, dtype_bytes)) * bk
+    k_slice = -(-(-(-K // bk)) // split_k(M, K, N, dtype_bytes, layout)) * bk
     plan = plan_for_matmul(M, min(K, k_slice), bn, bk, bn, vmem_budget=stages * per_stage,
                            num_slots=stages, dtype_bytes=dtype_bytes)
     plan.validate()
@@ -208,16 +239,17 @@ _WORKSPACES: dict = {}
 
 
 def _workspace(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The decode route's workspace for splits of more than DECODE_MAX_CLUSTER
-    slices on ``device``: fp32 partials for WORKSPACE_CTAS tiles of 64 x 64
-    and NUM_SMS int32 counters, zeroed once;
+    """The workspace of split products on ``device`` (the decode route's
+    splits of more than DECODE_MAX_CLUSTER slices, the wgmma route's split
+    backward products): WORKSPACE_FLOATS fp32 partials and NUM_SMS int32
+    counters, zeroed once;
     the kernel leaves every counter at 0 again.  One per device, made
     outside any CUDA graph capture by the first launch there; launches that
     share it are ordered on one stream."""
     ws = _WORKSPACES.get(device)
     if ws is None:
         ws = _WORKSPACES[device] = (
-            torch.empty(WORKSPACE_CTAS * DECODE_BN * 64, dtype=torch.float32, device=device),
+            torch.empty(WORKSPACE_FLOATS, dtype=torch.float32, device=device),
             torch.zeros(NUM_SMS, dtype=torch.int32, device=device))
     return ws
 
@@ -227,7 +259,7 @@ def _library():
     fn = lib.ltrf_matmul_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-                       + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -242,17 +274,15 @@ def ltrf_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def matmul_vjp(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, needs: tuple):
-    """(dX, dW) of ``x @ w`` for the output gradient ``dy``, each a product
-    on the kernel (None where ``needs`` says it is not wanted).  For dW the
-    M rows become the product's K, which the kernel takes only in multiples
-    of 16 bytes: x and dy get zero rows up to that, which add nothing."""
+    """(dX, dW) of ``x @ w`` for the output gradient ``dy``, each one launch
+    with its operands as they lie (None where ``needs`` says it is not
+    wanted): dX = dY @ w^T in layout ``nt``, dW = x^T @ dY in layout ``tn``.
+    x and w are the forward's operands, which the kernel took contiguous;
+    a strided ``dy`` (a shard's, say) is made contiguous first: TMA reads
+    rows of unit stride."""
     dy = dy.contiguous()
-    dx = _product(dy, w.t().contiguous()) if needs[0] else None
-    dw = None
-    if needs[1]:
-        pad = -x.shape[0] % (16 // x.element_size())
-        xp, dyp = (x, dy) if not pad else (F.pad(x, (0, 0, 0, pad)), F.pad(dy, (0, 0, 0, pad)))
-        dw = _product(xp.t().contiguous(), dyp)
+    dx = _product(dy, w, "nt") if needs[0] else None
+    dw = _product(x, dy, "tn") if needs[1] else None
     return dx, dw
 
 
@@ -270,50 +300,84 @@ class LtrfMatmulFn(torch.autograd.Function):
         return matmul_vjp(x, w, dy, ctx.needs_input_grad)
 
 
-def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """One product: the plain version for CPU tensors, else one launch."""
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return matmul_ref(x, w)
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"ltrf_matmul: operands on {x.device} and {w.device}; "
+def _operands(a: torch.Tensor, b: torch.Tensor, layout: str) -> tuple:
+    """The product's (op(a), op(b)) as views: out = op(a) @ op(b)."""
+    return (a.t() if layout == "tn" else a), (b.t() if layout == "nt" else b)
+
+
+def _fp32_as_nn(a: torch.Tensor, b: torch.Tensor, layout: str) -> tuple:
+    """The fp32 route has no backward layouts: each transposed operand is
+    copied, and a tn product's reduction (a's and b's rows) padded with zero
+    rows to 16 bytes, which the FFMA kernel's rows need."""
+    if layout == "tn":
+        pad = -a.shape[0] % (16 // a.element_size())
+        if pad:
+            a, b = F.pad(a, (0, 0, 0, pad)), F.pad(b, (0, 0, 0, pad))
+    a, b = _operands(a, b, layout)
+    return a.contiguous(), b.contiguous()
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, layout: str = "nn") -> torch.Tensor:
+    """One product out = op(a) @ op(b) in ``layout`` (``LAYOUTS``; a and b
+    as they lie): the plain version for CPU tensors, else one launch."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return matmul_ref(*_operands(a, b, layout))
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"ltrf_matmul: operands on {a.device} and {b.device}; "
                          "both must be on the CPU or on one CUDA device")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"ltrf_matmul: dtypes {x.dtype}, {w.dtype}; "
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"ltrf_matmul: dtypes {a.dtype}, {b.dtype}; "
                         "need both float32 or both bfloat16")
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"ltrf_matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
-    if not (x.is_contiguous() and w.is_contiguous()):
+    if layout not in LAYOUTS:
+        raise ValueError(f"ltrf_matmul: layout {layout!r}, not one of {LAYOUTS}")
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"ltrf_matmul: operands of {a.dim()} and {b.dim()} dimensions")
+    x, w = _operands(a, b, layout)
+    if x.shape[1] != w.shape[0]:
+        raise ValueError(f"ltrf_matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)} "
+                         f"(layout {layout})")
+    if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("ltrf_matmul: operands must be contiguous")
-    M, K = x.shape
-    N = w.shape[1]
-    ch = 16 // x.element_size()
-    if M == 0 or K % ch or N % ch or x.data_ptr() % 16 or w.data_ptr() % 16:
+    kernel_layout = layout
+    if a.dtype == torch.float32 and layout != "nn":
+        a, b = x, w = _fp32_as_nn(a, b, layout)
+        kernel_layout = "nn"
+    (M, K), N = x.shape, w.shape[1]
+    ch = 16 // a.element_size()
+    # TMA and cp.async read rows of 16-byte multiples: the rows of a, b and
+    # out are K and N long, or M and N in tn (whose reduction runs down them)
+    rows = (M, N) if kernel_layout == "tn" else (K, N)
+    if M == 0 or any(r % ch for r in rows) or a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError(
-            f"ltrf_matmul: needs M > 0, K and N multiples of {ch} and 16-byte "
-            f"aligned operands; got M, K, N = {M}, {K}, {N}")
-    plan, (bm, bk, bn) = matmul_plan(M, K, N, x.element_size())
-    split = split_k(M, K, N, x.element_size())
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+            f"ltrf_matmul: needs M > 0, row lengths that are multiples of {ch} and "
+            f"16-byte aligned operands; got M, K, N = {M}, {K}, {N} (layout {layout})")
+    nbytes = a.element_size()
+    plan, (bm, bk, bn) = matmul_plan(M, K, N, nbytes, kernel_layout)
+    split = split_k(M, K, N, nbytes, kernel_layout)
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     partials = counters = None
-    if split > DECODE_MAX_CLUSTER:
-        partials, counters = _workspace(x.device)
-        assert -(-N // bn) * split <= WORKSPACE_CTAS and -(-N // bn) <= counters.numel()
+    if split > DECODE_MAX_CLUSTER or (split > 1 and kernel_layout != "nn"):
+        partials, counters = _workspace(a.device)
+        tiles = -(-M // bm) * -(-N // bn)
+        assert tiles * split * bm * bn <= partials.numel() and tiles <= counters.numel()
     launch = _library()
-    with torch.cuda.device(x.device):
-        err = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N,
-                     _DTYPES[x.dtype], bm, bk, bn, plan.num_slots, split,
+    with torch.cuda.device(a.device):
+        err = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
+                     _DTYPES[a.dtype], bm, bk, bn, plan.num_slots, split,
                      partials.data_ptr() if partials is not None else None,
                      counters.data_ptr() if counters is not None else None,
-                     torch.cuda.current_stream().cuda_stream)
+                     LAYOUTS.index(kernel_layout), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ltrf_matmul kernel launch failed: cudaError {err}")
     ltrf_matmul.launches += 1
-    ltrf_matmul.launches_by_route[route(M, x.element_size())] += 1
+    ltrf_matmul.launches_by_route[route(M, nbytes, kernel_layout)] += 1
+    ltrf_matmul.launches_by_layout[layout] += 1
     return out
 
 
 ltrf_matmul.launches = 0
 ltrf_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
+ltrf_matmul.launches_by_layout = dict.fromkeys(LAYOUTS, 0)
 
 __all__ = ["LtrfMatmulFn", "ltrf_matmul", "matmul_plan", "matmul_ref", "matmul_vjp",
            "pick_blocks", "split_k"]

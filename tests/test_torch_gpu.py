@@ -466,18 +466,20 @@ def test_gradient_limits_fail_planted_faults(dev, arch, fault, dtype, monkeypatc
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_backward_matmuls_take_the_kernel_routes(dev, arch, monkeypatch):
     """Every ltrf_matmul launch of a train step's gradient -- forward, remat
-    recompute and both backward products -- is counted on wgmma, or on
-    decode where its M <= 64."""
+    recompute and both backward products -- is counted on wgmma (a forward
+    with M <= 64 on decode), in its layout: nn for the forward and the
+    recompute, nt for each dX and tn for each dW."""
     cfg = dataclasses.replace(get_smoke(arch), remat="full")
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
     seen = []
     real = mm_ops._product
 
-    def product(x, w):
-        before = dict(ltrf_matmul.launches_by_route)
-        out = real(x, w)
-        after = ltrf_matmul.launches_by_route
-        seen.append((x.shape[0], [r for r in after if after[r] != before[r]]))
+    def product(a, b, layout="nn"):
+        before = dict(ltrf_matmul.launches_by_route), dict(ltrf_matmul.launches_by_layout)
+        out = real(a, b, layout)
+        after = ltrf_matmul.launches_by_route, ltrf_matmul.launches_by_layout
+        seen.append((out.shape[0], layout, [r for r in after[0] if after[0][r] != before[0][r]],
+                     [k for k in after[1] if after[1][k] != before[1][k]]))
         return out
 
     monkeypatch.setattr(mm_ops, "_product", product)
@@ -487,9 +489,90 @@ def test_backward_matmuls_take_the_kernel_routes(dev, arch, monkeypatch):
     forward = len(seen)
     seen.clear()
     grads_of(cfg, params, batch)
-    assert all(routes == ["wgmma" if M > 64 else "decode"] for M, routes in seen), seen
+    assert all(routes == ["wgmma" if M > 64 or layout != "nn" else "decode"]
+               and layouts == [layout] for M, layout, routes, layouts in seen), seen
     # the forward, the blocks' recompute (all but the head) and two products each
     assert len(seen) == forward + (forward - 1) + 2 * forward
+    assert [layout for _, layout, _, _ in seen].count("nt") == forward
+    assert [layout for _, layout, _, _ in seen].count("tn") == forward
+
+
+def _within_tol_at_rms(got, want) -> bool:
+    """TOL's bf16 row with its atol scaled by the plain output's RMS (the
+    backward products' outputs are not of unit size: dX ~ 1/sqrt(K), dW ~
+    sqrt(M/N)), as chip_smoke.py's check_train_matmuls holds them."""
+    got, want = got.float(), want.float()
+    rms = float(want.square().mean().sqrt().clamp_min(1e-30))
+    tol = TOL[torch.bfloat16]
+    return bool(((got - want).abs() <= tol["atol"] * rms + tol["rtol"] * want.abs()).all())
+
+
+def _vjp_inputs(dev, M, K, N, dtype, seed=7):
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(M, K, device=dev, generator=g).to(dtype)
+    w = (torch.randn(K, N, device=dev, generator=g) / K ** 0.5).to(dtype)
+    dy = (torch.randn(M, N, device=dev, generator=g) / N ** 0.5).to(dtype)
+    return x, w, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(M, K, N) for M in (7, 80, 1000, 8190)
+                                   for K, N in ((2048, 256), (264, 2048), (136, 264))]
+                         + [(1000, 2048, 32000)])
+def test_matmul_vjp_matches_plain(dev, M, K, N, dtype):
+    """dX = dY w^T (layout nt) and dW = x^T dY (layout tn) against matmul_ref
+    at row counts off every tile and 16-byte edge, narrow and 32000-wide N:
+    bf16 on the wgmma route with the operands read in place (split where the
+    tiles are few), fp32 on its FFMA route through copies; one launch of
+    each layout per call."""
+    x, w, dy = _vjp_inputs(dev, M, K, N, dtype)
+    before = dict(ltrf_matmul.launches_by_layout), dict(ltrf_matmul.launches_by_route)
+    dx, dw = mm_ops.matmul_vjp(x, w, dy, (True, True))
+    torch.cuda.synchronize()
+    assert ltrf_matmul.launches_by_layout == {**before[0], "nt": before[0]["nt"] + 1,
+                                              "tn": before[0]["tn"] + 1}
+    kind = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    assert ltrf_matmul.launches_by_route == {**before[1], kind: before[1][kind] + 2}
+    want_dx, want_dw = matmul_ref(dy, w.t()), matmul_ref(x.t(), dy)
+    if dtype == torch.bfloat16:
+        assert _within_tol_at_rms(dx, want_dx) and _within_tol_at_rms(dw, want_dw)
+    else:
+        torch.testing.assert_close(dx, want_dx, **TOL[dtype])
+        torch.testing.assert_close(dw, want_dw, **TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(8192, 2048, 256), (1000, 2048, 256), (8190, 136, 264),
+                                   (64, 264, 2048), (2048, 2048, 5632)])
+def test_matmul_vjp_gives_the_same_bits_twice(dev, shape):
+    """dX and dW, split products included (their partials summed in a fixed
+    order by each tile's last CTA), give the same bits on every launch."""
+    M, K, N = shape
+    x, w, dy = _vjp_inputs(dev, M, K, N, torch.bfloat16, seed=8)
+    splits = (mm_ops.split_k(M, N, K, 2, "nt"), mm_ops.split_k(K, M, N, 2, "tn"))
+    if shape in ((8192, 2048, 256), (1000, 2048, 256)):
+        assert splits[1] > 1
+    first = mm_ops.matmul_vjp(x, w, dy, (True, True))
+    for _ in range(3):
+        again = mm_ops.matmul_vjp(x, w, dy, (True, True))
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+
+
+def test_matmul_vjp_copies_nothing(dev):
+    """One bf16 matmul_vjp call with contiguous operands: no copy or clone
+    op under the profiler, one nt and one tn launch, nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+    x, w, dy = _vjp_inputs(dev, 8192, 2048, 256, torch.bfloat16, seed=9)
+    mm_ops.matmul_vjp(x, w, dy, (True, True))          # builds, plans, the workspace
+    torch.cuda.synchronize()
+    before = dict(ltrf_matmul.launches_by_layout)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        mm_ops.matmul_vjp(x, w, dy, (True, True))
+    torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert not [n for n in names if n in ("aten::copy_", "aten::clone", "aten::constant_pad_nd",
+                                          "aten::matmul", "aten::mm")]
+    assert ltrf_matmul.launches_by_layout == {**before, "nt": before["nt"] + 1,
+                                              "tn": before["tn"] + 1}
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)

@@ -277,3 +277,130 @@ def test_function_only_where_a_gradient_is_wanted():
     out = ltrf_matmul(x, w)
     out.sum().backward()
     assert x.grad is None and w.grad is not None
+
+
+# ---------------------------------------------------------------------------
+# the backward's layouts (nt: dX = dY w^T, tn: dW = x^T dY) and its split
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.ltrf_matmul.ops import (  # noqa: E402
+    LAYOUTS, WGMMA_MIN_SLICE_BLOCKS, WORKSPACE_FLOATS, _fp32_as_nn, _product, _wgmma_bn,
+)
+
+# the train step's projections (chip_smoke.py's slice_matmuls): tinyllama-1.1b
+# and mamba2-1.3b's in_proj, out_proj and 50280-wide head
+TRAIN_KN = SLICE_KN + [(2048, 8512), (4096, 2048), (2048, 50280)]
+
+
+def _backward_product(M, K, N, which):
+    """The kernel's (M', K', N', layout) of one backward product of x(M, K) @ w(K, N)."""
+    return (M, N, K, "nt") if which == "dX" else (K, M, N, "tn")
+
+
+def _wgmma_slices(K, split):
+    """The wgmma route's K slices: 64-row blocks kb0 = s * n_kb // split, in rows."""
+    return _slices(K, split, bk=64)
+
+
+@pytest.mark.parametrize("which", ["dX", "dW"])
+@pytest.mark.parametrize("M", [2048, 8192])
+@pytest.mark.parametrize("kn", TRAIN_KN)
+def test_backward_products_fill_the_card(M, kn, which):
+    """Each backward product of a train step takes the wgmma tiles in its
+    layout and launches at least ~one wave of work units (output tiles x K
+    slices); a split stays within one wave, gives each slice at least
+    WGMMA_MIN_SLICE_BLOCKS blocks and fits the workspace, and the per-CTA plan
+    covers the longest slice."""
+    m, k, n, layout = _backward_product(M, *kn, which)
+    assert route(m, 2, layout) == "wgmma"
+    bm, bk, bn, stages = pick_blocks(m, k, n, 2, layout)
+    assert (bm, bk) == (128, 64) and bn == _wgmma_bn(m, n)
+    assert (bm, bk, bn, stages) == pick_blocks(m, k, n, 2)     # the forward's tiles
+    tiles, split = -(-m // bm) * -(-n // bn), split_k(m, k, n, 2, layout)
+    assert tiles * split >= 0.96 * NUM_SMS
+    if split > 1:
+        assert tiles * split <= NUM_SMS and 2 * tiles <= NUM_SMS
+        assert min(b - a for a, b in _wgmma_slices(k, split)) >= 64 * WGMMA_MIN_SLICE_BLOCKS
+        assert tiles * split * bm * bn <= WORKSPACE_FLOATS and tiles <= NUM_SMS
+    assert split_k(m, k, n, 2) == 1 and split_k(m, k, n, 4, layout) == 1   # forward, fp32
+    plan, blocks = matmul_plan(m, k, n, 2, layout)
+    plan.validate()
+    assert blocks == (bm, bk, bn) and plan.num_slots == stages
+    longest = max(-(-(b - a) // bk) for a, b in _wgmma_slices(k, split))
+    assert sum(len(p.tiles) for p in plan.prefetches) >= longest
+
+
+def test_narrow_dw_is_split_over_the_card():
+    # tinyllama's wk / wv dW at M = 8192: 32 output tiles of 128 x 128, the
+    # 8192-row reduction cut in 4 slices of 2048: 128 CTAs where 32 were
+    m, k, n, layout = _backward_product(8192, 2048, 256, "dW")
+    assert (m, k, n) == (2048, 8192, 256)
+    assert pick_blocks(m, k, n, 2, layout)[2] == 128 and split_k(m, k, n, 2, layout) == 4
+    # dW of wq / wo (128 tiles) is not split: two waves would cost more
+    assert split_k(2048, 8192, 2048, 2, "tn") == 1
+    # the forward never splits on the wgmma route
+    assert all(split_k(m, k, n, 2, "nn") == 1 for m in (65, 2048, 8192))
+
+
+@pytest.mark.parametrize("shape,split", [((2048, 2048, 256), 4), ((2048, 1001, 256), 2),
+                                         ((2048, 960, 256), 1), ((256, 8192, 128), 16),
+                                         ((136, 7, 264), 1)])
+def test_split_backward_emulation_matches_ref(shape, split):
+    """The wgmma route's split dW on the CPU, in the kernel's order: an fp32
+    partial per K slice (bf16 products are exact in fp32), the slices summed
+    from zero in the fixed order 0 .. split-1, one rounding to bf16.  The fp32
+    sum agrees with one fp32 product to fp32 rounding, the bf16 result with
+    matmul_ref at the bf16 tolerance, and two runs give the same bits."""
+    m, k, n = shape
+    x = to_torch(randn(0, (k, m)), "bfloat16")          # as it lies: rows are the reduction
+    dy = to_torch(randn(1, (k, n)) / k ** 0.5, "bfloat16")
+    assert split_k(m, k, n, 2, "tn") == split
+
+    def emulate():
+        acc = torch.zeros(m, n)
+        for a, b in _wgmma_slices(k, split):
+            acc = acc + x[a:b].t().float() @ dy[a:b].float()
+        return acc
+
+    acc = emulate()
+    torch.testing.assert_close(acc, x.t().float() @ dy.float(), rtol=1e-5, atol=1e-5)
+    got = acc.to(torch.bfloat16)
+    torch.testing.assert_close(got.float(), matmul_ref(x.t(), dy).float(), rtol=3e-2, atol=8e-2)
+    assert torch.equal(got, emulate().to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", [7, 1001])
+def test_matmul_vjp_odd_rows_match_jax(M, dtype):
+    """matmul_vjp at row counts that are no multiple of 16 bytes (no row is
+    padded now) against jax.vjp of the JAX package's matmul_ref, at the
+    parity harness's tolerance for the dtype; each layout's plain path is
+    matmul_ref of the transposed views, bit for bit."""
+    import jax
+    K, N = 48, 24
+    x, w, dy = randn(0, (M, K)), randn(1, (K, N)), randn(2, (M, N))
+    tx, tw, tdy = (to_torch(a, dtype) for a in (x, w, dy))
+    dx, dw = mm_ops.matmul_vjp(tx, tw, tdy, (True, True))
+    _, vjp = jax.vjp(jax_matmul_ref, to_jax(x, dtype), to_jax(w, dtype))
+    jdx, jdw = vjp(to_jax(dy, dtype))
+    assert dx.shape == (M, K) and dw.shape == (K, N) and dx.dtype == dw.dtype == tx.dtype
+    assert_close(dx, jdx, dtype)
+    assert_close(dw, jdw, dtype)
+    assert torch.equal(dx, matmul_ref(tdy, tw.t())) and torch.equal(dw, matmul_ref(tx.t(), tdy))
+    assert mm_ops.matmul_vjp(tx, tw, tdy, (False, True))[0] is None
+    assert mm_ops.matmul_vjp(tx, tw, tdy, (True, False))[1] is None
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("rows", [7, 8, 1001])
+def test_fp32_backward_copies_into_the_forward_layout(layout, rows):
+    """The fp32 route has no backward layouts: its operands become the
+    forward's (contiguous copies; tn's reduction padded with zero rows to 16
+    bytes), whose product is the layout's."""
+    a = to_torch(randn(0, (rows, 12)), "float32")
+    b = to_torch(randn(1, {"nn": (12, 20), "nt": (20, 12), "tn": (rows, 20)}[layout]), "float32")
+    x, w = _fp32_as_nn(a, b, layout)
+    assert x.is_contiguous() and w.is_contiguous() and x.shape[1] == w.shape[0]
+    if layout == "tn":
+        assert x.shape == (12, -(-rows // 4) * 4)
+    torch.testing.assert_close(x @ w, _product(a, b, layout), rtol=1e-5, atol=1e-5)
