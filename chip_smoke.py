@@ -41,25 +41,35 @@ exits non-zero; no phase's error is caught):
    each limit catches.  Every prefill phase checks that each of its bf16
    M=2048 matmuls and flash calls took the kernels' ``wgmma`` route.
 5. serve   -- full-width tinyllama ``serve()`` (8 active slots, max_len 256,
-   16 requests, up to 12 new tokens each) on the kernel path; all requests
-   complete, no page leaks; the first 4 decode steps' logits held against
-   the plain path.
-6. profile -- four full-width tinyllama decode steps as the engine runs them,
-   under ``torch.profiler``: the device-busy share of a step and the kernels
-   by device time (Chrome trace in chiprun_out/decode_trace.json).
+   16 requests, up to 12 new tokens each) on the kernel path, its engine
+   running the decode step as one captured CUDA graph (``capture_s``
+   reported beside the steady-state ``ms_per_step``); all requests
+   complete, no page leaks, every matmul launch (counted through the
+   replays) on the ``decode`` route; the same requests on the eager engine
+   (``graphs=False``) must give the same tokens, bit for bit, and a planted
+   stale ``cache_len`` scalar (never written after capture) must not; the
+   first 4 decode steps' logits held against the plain path.
+6. profile -- four full-width tinyllama decode steps as the eager engine runs
+   them and four replays of the compiled engine's step, under
+   ``torch.profiler``: wall and device-busy ms of a step, busy share, device
+   ops a step and the kernels by device time (Chrome traces in
+   chiprun_out/decode_trace.json and decode_trace_graph.json).
 7. prefill_mamba2 -- full-width mamba2-1.3b ``loss_fn`` at B=2 x S=1024 on
    the kernel path (97 ``ltrf_matmul`` and 48 ``ssd_scan`` launches), held
    against the plain path; each layer's ``ssd_scan`` chunk kernel held
    against ``ssd_chunk_ref`` at that layer's inputs; two planted SSM faults
    (inter-chunk carry dropped, lower-triangle mask dropped) must fail the
    model-level limit.
-8. serve_mamba2 -- the serve of phase 5 for mamba2-1.3b, its first 4 decode
-   steps held against the plain path, and 4 decode steps profiled.
+8. serve_mamba2 -- the serve of phase 5 for mamba2-1.3b (compiled against
+   eager), its first 4 decode steps held against the plain path, and decode
+   steps profiled as in phase 6.
 9. prefill_zamba2 -- full-width zamba2-1.2b ``loss_fn`` at B=2 x S=1024 (119
    ``ltrf_matmul``, 6 ``flash_attention``, 38 ``ssd_scan`` launches), held
    against the plain path, each layer's flash and ssd call held against its
    plain version, and 4 decode steps (6 per-call-site KV caches) held against
-   the plain path.
+   the plain path; then serve_zamba2, the serve of phase 5 for zamba2-1.2b
+   (compiled against eager; the SSM caches and the shared block's KV caches
+   in one captured step), its steps profiled as in phase 6.
 10. prefill_granite_moe -- full-width, full-depth granite-moe-3b-a800m
     ``loss_fn`` at B=2 x S=1024 (129 ``ltrf_matmul``, 32 ``flash_attention``
     launches), held against the plain path in bf16 and in fp32, with the
@@ -67,9 +77,11 @@ exits non-zero; no phase's error is caught):
     layer, each layer's flash call against its plain version, planted MoE
     faults (gate renormalisation dropped, inverse permutation dropped) and
     attention faults, and the expert products (``torch.bmm``) timed.
-11. serve_granite_moe -- the serve of phase 5 for granite-moe, its first 4
+11. serve_granite_moe -- the serve of phase 5 for granite-moe (compiled
+    against eager), its first 4
     decode steps held against the plain path in bf16 and fp32 (a planted
-    "capacity ignored" fault must fail the fp32 limit), 4 steps profiled, and
+    "capacity ignored" fault must fail the fp32 limit), steps profiled as in
+    phase 6, and
     the expert products timed at the decode capacity.
 12. prefill_musicgen, serve_musicgen -- the same for musicgen-large (audio:
     4 codebooks summed in, a 4 x 2048-wide head; 337 ``ltrf_matmul`` and 48
@@ -270,7 +282,7 @@ from repro_torch.models.lm import (  # noqa: E402
     ATTN_FAMILIES, decode_step, head_width, held_width, init_decode_cache, init_params,
     logits_fn, loss_fn, param_axes, param_shapes,
 )
-from repro_torch.serving import SimRunner, sim_key  # noqa: E402
+from repro_torch.serving import ServeConfig, ServingEngine, SimRunner, sim_key  # noqa: E402
 from repro_torch.sim import TOLERANCE_MULTS, baseline_config, design_config  # noqa: E402
 from repro_torch.sim import simulate_gpu  # noqa: E402
 from repro_torch.sim.gpu import per_sm_configs  # noqa: E402
@@ -1334,12 +1346,35 @@ def ssm_decode_vs_plain(cfg, params, dev) -> dict:
     return out
 
 
-def main_path_serve(arch, cfg, dev, seed) -> dict:
+SERVE_KW = dict(smoke=False, n_requests=16, max_new=12, active_slots=8, total_pages=64,
+                max_len=256)
+REAL_CAPTURE = ServingEngine._capture
+
+
+def stale_cache_len_capture(engine) -> None:
+    """The planted fault: capture as the engine does, then point the steps'
+    writes at a scalar the graph does not read, so every replay keeps the
+    captured cache_len (0), as a Python int baked into a trace would."""
+    REAL_CAPTURE(engine)
+    engine._len = torch.zeros_like(engine._len)
+
+
+def main_path_serve(arch, cfg, params, dev, seed, planted=False) -> dict:
+    """``serve()`` on the compiled engine (the main path: the decode step
+    captured once as a CUDA graph and replayed, its launches counted through
+    the replays), then on the eager engine (``graphs=False``) with the same
+    weights and requests: the two engines' tokens must agree bit for bit
+    (the same kernels in the same order).  ``planted``: a compiled run whose
+    cache_len scalar is never written must fail that check.  ``params`` are
+    ``init_params`` from the seed, the weights ``serve()`` would make."""
+    kw = dict(SERVE_KW, seed=seed, device=dev, params=params)
     torch.cuda.synchronize()
     reset_counts()
-    stats = serve(arch, smoke=False, n_requests=16, max_new=12, seed=seed,
-                  active_slots=8, total_pages=64, max_len=256, device=dev)
+    t0 = time.perf_counter()
+    stats = serve(arch, **kw)
     counts, routes = read_counts(), read_routes()  # the main path's launches
+    seconds = {"compiled": time.perf_counter() - t0}
+    check(stats["graphs"], f"{arch} serve ran eagerly on the card")
     check(stats["completed"] == 16, f"{arch} serve completed {stats['completed']}/16")
     check(stats["pages_leaked"] == 0, f"{arch} serve leaked {stats['pages_leaked']} pages")
     per_step = forward_launches(cfg)["ltrf_matmul"]
@@ -1347,26 +1382,40 @@ def main_path_serve(arch, cfg, dev, seed) -> dict:
                      "ssd_scan": 0}, f"{arch} serve launches {counts} over {stats['steps']} steps")
     check(routes["ltrf_matmul"]["decode"] == counts["ltrf_matmul"],
           f"{arch} serve matmul routes {routes['ltrf_matmul']}: every step is M = 8")
-    return {**stats, "launches": counts, "launches_by_route": routes}
+    t0 = time.perf_counter()
+    eager = serve(arch, graphs=False, **kw)
+    seconds["eager"] = time.perf_counter() - t0
+    check(not eager["graphs"] and eager["generated"] == stats["generated"],
+          f"{arch}: the compiled engine's tokens {stats['generated']} differ from the "
+          f"eager engine's {eager['generated']}")
+    out = {k: v for k, v in stats.items() if k != "generated"}
+    out["eager"] = {k: eager[k] for k in ("steps", "ms_per_step", "tok_per_s", "wall_s")}
+    out["tokens_equal_eager"] = True
+    if planted:
+        t0 = time.perf_counter()
+        with patched(ServingEngine, "_capture", stale_cache_len_capture):
+            stale = serve(arch, **kw)
+        seconds["planted"] = time.perf_counter() - t0
+        differ = sum(a != b for a, b in zip(stale["generated"].values(),
+                                            stats["generated"].values()))
+        check(differ > 0, f"{arch}: the token check passes a planted stale cache_len scalar")
+        out["planted_stale_cache_len"] = {"requests_whose_tokens_differ": differ}
+    return {**out, "serve_s": seconds, "launches": counts, "launches_by_route": routes}
 
 
 def phase_serve(cfg, params, dev, seed) -> dict:
-    stats = main_path_serve(ARCH, cfg, dev, seed)
+    stats = main_path_serve(ARCH, cfg, params, dev, seed, planted=True)
     return {**stats, "decode_vs_plain": decode_vs_plain(cfg, params, dev, MODEL_LOGITS_REL_L2)}
 
 
-def phase_profile(cfg, params, dev, trace_name="decode_trace.json") -> dict:
-    """Device-busy share of decode steps run as the engine runs them (8 slots,
-    argmax fetched to the host every step), from the profiler's kernel spans."""
+def profile_engine(engine, trace_name) -> dict:
+    """Device-busy share of decode steps as the engine runs them (8 slots,
+    greedy tokens fetched to the host every step), from the profiler's
+    kernel spans."""
     from torch.profiler import ProfilerActivity, profile
 
-    cache = init_decode_cache(cfg, 8, 256, dev)
-    toks = first_tokens(cfg, dev)
-
     def step(n):
-        nonlocal cache
-        logits, cache = decode_step(params, cache, toks, n, cfg)
-        toks.copy_(engine_tokens(cfg, logits[:, -1].argmax(-1).cpu()))
+        engine.tokens[:, 0] = engine.decode(n).cpu().numpy()
 
     for n in range(2):
         step(n)
@@ -1381,21 +1430,43 @@ def phase_profile(cfg, params, dev, trace_name="decode_trace.json") -> dict:
     by_name, n_spans = device_spans(prof, trace_name)
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"steps": n_steps, "wall_ms_per_step": 1e3 * wall / n_steps,
+            "device_busy_ms_per_step": busy_ms / n_steps,
+            "device_busy_share": busy_ms / (1e3 * wall),
+            "device_ops_per_step": n_spans / n_steps,
+            "top_kernels_ms_per_step": [(name[:80], d / 1e3 / n_steps) for name, d in top]}
+
+
+def phase_profile(cfg, params, dev, trace_name="decode_trace.json") -> dict:
+    """Four decode steps of the eager engine (``graphs=False``) and four of
+    the compiled one (replays of its captured step; trace
+    ``decode_trace_graph*.json``), each profiled as ``profile_engine`` does,
+    beside the step's HBM bound."""
+    sc = ServeConfig(max_len=256, active_slots=8, total_pages=64)
+    engine = ServingEngine(cfg, params, sc, device=dev, graphs=False)
+    out = profile_engine(engine, trace_name)
     # a step reads every weight but the embedding table (of which it gathers
     # 8 rows), reads and writes the SSM state and conv window, and reads the
     # KV caches (whole, as plain decode attention does)
     nbytes = {"weights": sum(t.numel() * t.element_size() for k, v in params.items()
                              if k != "embed" for t in tree_leaves(v)),
-              "ssm_state": sum(t.numel() * t.element_size() for k, t in cache.items()
+              "ssm_state": sum(t.numel() * t.element_size() for k, t in engine.cache.items()
                                if k in ("ssm", "conv")),
-              "kv_cache": sum(t.numel() * t.element_size() for k, t in cache.items()
+              "kv_cache": sum(t.numel() * t.element_size() for k, t in engine.cache.items()
                               if k in ("k", "v"))}
-    return {"steps": n_steps, "wall_ms_per_step": 1e3 * wall / n_steps,
-            "device_busy_ms_per_step": busy_ms / n_steps,
-            "device_busy_share": busy_ms / (1e3 * wall),
-            "device_ops_per_step": n_spans / n_steps,
-            "top_kernels_ms_per_step": [(name[:80], d / 1e3 / n_steps) for name, d in top],
-            "bytes_per_step": nbytes,
+    del engine
+    free_memory()
+    engine = ServingEngine(cfg, params, sc, device=dev)
+    check(engine.graph is not None, f"{cfg.name}: the profiled engine did not capture its step")
+    out["replayed"] = {**profile_engine(engine, trace_name.replace("decode_trace",
+                                                                   "decode_trace_graph")),
+                       "capture_s": engine.capture_s}
+    del engine
+    free_memory()
+    out["replayed_over_eager"] = {
+        k: out["replayed"][k] / out[k]
+        for k in ("wall_ms_per_step", "device_busy_ms_per_step", "device_ops_per_step")}
+    return {**out, "bytes_per_step": nbytes,
             "hbm_bound_ms_per_step": 1e3 * (nbytes["weights"] + 2 * nbytes["ssm_state"]
                                             + nbytes["kv_cache"]) / HBM_BYTES_PER_S}
 
@@ -1405,7 +1476,7 @@ def phase_prefill_mamba2(cfg, params, dev, seed) -> dict:
 
 
 def phase_serve_mamba2(cfg, params, dev, seed) -> dict:
-    stats = main_path_serve(SSM_ARCH, cfg, dev, seed)
+    stats = main_path_serve(SSM_ARCH, cfg, params, dev, seed)
     free_memory()
     return {**stats, "decode_vs_plain": ssm_decode_vs_plain(cfg, params, dev),
             "profile": phase_profile(cfg, params, dev, f"decode_trace_{SSM_ARCH}.json")}
@@ -1415,6 +1486,15 @@ def phase_prefill_zamba2(cfg, params, dev, seed) -> dict:
     out = ssm_prefill(cfg, params, dev, seed, faults=False)
     out["decode_vs_plain"] = ssm_decode_vs_plain(cfg, params, dev)
     return out
+
+
+def phase_serve_zamba2(cfg, params, dev, seed) -> dict:
+    """The serve of phase 5 for zamba2-1.2b (the SSM caches and the shared
+    block's KV caches in one captured step), and 4 steps profiled each way."""
+    stats = main_path_serve(HYBRID_ARCH, cfg, params, dev, seed)
+    free_memory()
+    return {**stats, "profile": phase_profile(cfg, params, dev,
+                                              f"decode_trace_{HYBRID_ARCH}.json")}
 
 
 # --- the moe, audio, vlm and wide dense families ----------------------------
@@ -1586,7 +1666,7 @@ def family_serve(cfg, params, dev, seed) -> dict:
     ignored" fault must fail the fp32 limit), and 4 steps profiled."""
     arch = cfg.name
     bf16_limit, fp32_limit, _ = FAMILY_LIMITS[arch]
-    stats = main_path_serve(arch, cfg, dev, seed)
+    stats = main_path_serve(arch, cfg, params, dev, seed)
     free_memory()
     out = {**stats, "decode_vs_plain": {"bf16": decode_vs_plain(cfg, params, dev, bf16_limit)}}
     free_memory()
@@ -3178,11 +3258,16 @@ def main() -> int:
     cfgs += [dataclasses.replace(get_arch(a), n_layers=n) for a, n in DEPTH_CUTS.items()]
     results: dict = {}
 
+    phase_s: dict = {}
+
     def run(name, fn, *a):
         t0 = time.perf_counter()
         results[name] = fn(*a)
-        emit({"phase": name, "wall_s": time.perf_counter() - t0,
-              **{k: v for k, v in results[name].items() if k not in KERNELS}})
+        phase_s[name] = time.perf_counter() - t0
+        # phase_s last: a serve phase's stats have a wall_s of their own
+        emit({"phase": name, "wall_s": phase_s[name],
+              **{k: v for k, v in results[name].items() if k not in KERNELS},
+              "phase_s": phase_s[name]})
 
     t_start = time.perf_counter()
     run("device", phase_device)
@@ -3200,7 +3285,8 @@ def main() -> int:
                 (cfgs[0], [("prefill", phase_prefill), ("serve", phase_serve)]),
                 (cfgs[1], [("prefill_mamba2", phase_prefill_mamba2),
                            ("serve_mamba2", phase_serve_mamba2)]),
-                (cfgs[2], [("prefill_zamba2", phase_prefill_zamba2)]),
+                (cfgs[2], [("prefill_zamba2", phase_prefill_zamba2),
+                           ("serve_zamba2", phase_serve_zamba2)]),
                 (cfgs[3], [("prefill_granite_moe", family_prefill),
                            ("serve_granite_moe", family_serve)]),
                 (cfgs[4], [("prefill_musicgen", family_prefill), ("serve_musicgen", family_serve)]),
@@ -3245,7 +3331,8 @@ def main() -> int:
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(
-            {**results, **line, "total_s": time.perf_counter() - t_start}, indent=1))
+            {**results, **line, "phase_s": phase_s, "total_s": time.perf_counter() - t_start},
+            indent=1))
         emit(line)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})

@@ -23,6 +23,9 @@ leaf's sha256, converts params-shaped subtrees back to the port's layout
 and checks the result against a like-tree (structure, shapes, dtypes; the
 like-tree's leaves may be meta tensors).  ``save_async`` copies the state to
 the host at once and writes it on a background thread, one write in flight.
+The leaves' digests are computed from their buffers (no copy) on a few
+threads, while ``arrays.npz`` is written (``save``) or after it is read
+(``restore``): hashlib releases the interpreter lock on large buffers.
 ``timings`` accumulates the seconds spent copying to the host, writing and
 restoring.
 """
@@ -30,17 +33,27 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import pathlib
 import re
 import shutil
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
 from ..models.convert import BF16, from_host, params_from_numpy, params_to_numpy, to_host
+
+HASH_THREADS = min(4, os.cpu_count() or 1)
+
+
+def _sha256(a: np.ndarray) -> str:
+    """The sha256 of an array's bytes in C order, hashed from its buffer."""
+    return hashlib.sha256(np.ascontiguousarray(a)).hexdigest()
+
 
 _KEY = re.compile(r"\['((?:[^'\\]|\\.)*)'\]|\[(\d+)\]")
 
@@ -161,13 +174,16 @@ class Checkpointer:
         tmp.mkdir(parents=True)
         stored = [(p, x[0], x[1]) if isinstance(x, tuple) else (p, x, x.dtype.name)
                   for p, x in leaves]
-        np.savez(tmp / "arrays.npz", **{f"a{i}": a for i, (_, a, _) in enumerate(stored)})
+        with ThreadPoolExecutor(HASH_THREADS) as pool:
+            digests = pool.map(_sha256, [a for _, a, _ in stored])     # beside the write
+            np.savez(tmp / "arrays.npz", **{f"a{i}": a for i, (_, a, _) in enumerate(stored)})
+            digests = list(digests)
         manifest = {
             "step": step,
             "leaves": [
                 {"key": f"a{i}", "path": p, "shape": list(a.shape), "dtype": name,
-                 "sha256": hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()}
-                for i, (p, a, name) in enumerate(stored)
+                 "sha256": h}
+                for i, ((p, a, name), h) in enumerate(zip(stored, digests))
             ],
         }
         (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
@@ -200,16 +216,17 @@ class Checkpointer:
         t0 = time.perf_counter()
         path = self.dir / f"step_{step:09d}"
         manifest = json.loads((path / "manifest.json").read_text())
-        host: dict = {}
         with np.load(path / "arrays.npz") as data:
-            for meta in manifest["leaves"]:
-                arr = data[meta["key"]]
-                if verify:
-                    h = hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+            arrays = [data[meta["key"]] for meta in manifest["leaves"]]
+        if verify:
+            with ThreadPoolExecutor(HASH_THREADS) as pool:
+                for meta, h in zip(manifest["leaves"], pool.map(_sha256, arrays)):
                     if h != meta["sha256"]:
                         raise IOError(f"checkpoint corruption at leaf {meta['path']}")
-                leaf = (arr, BF16) if meta["dtype"] == BF16 else arr.view(np.dtype(meta["dtype"]))
-                _insert(host, meta["path"], leaf)
+        host: dict = {}
+        for meta, arr in zip(manifest["leaves"], arrays):
+            leaf = (arr, BF16) if meta["dtype"] == BF16 else arr.view(np.dtype(meta["dtype"]))
+            _insert(host, meta["path"], leaf)
         tree = _to_port(host, like_tree, self.cfg, _device(like_tree, device))
         self.timings["restore_s"] += time.perf_counter() - t0
         return tree

@@ -187,23 +187,38 @@ def attention_block(params, x, *, n_heads, n_kv, head_dim, positions,
     return matmul(out.reshape(B, S, n_heads * head_dim), params["wo"], kernels)
 
 
-def attention_decode(params, x, cache_k, cache_v, cache_len: int, *, n_heads,
+def attention_decode(params, x, cache_k, cache_v, cache_len, *, n_heads,
                      n_kv, head_dim, qk_norm=False, rope_theta=10000.0,
                      norm_eps=1e-5, kernels=True):
     """One-token decode against a (B, S_max, kv, hd) KV cache.
 
-    Writes the new K/V into the caches in place, at ``cache_len`` clamped to
-    the cache (as ``dynamic_update_slice`` clamps), and attends to positions
+    ``cache_len`` is a Python int or a 0-d integer tensor on x's device,
+    with the same bits: the tensor is never read on the host, so the step
+    can be captured once in a CUDA graph and replayed at every length.
+    Writes the new K/V into the caches in place at row ``cache_len`` as
+    ``dynamic_update_slice`` places it (a negative row counted from the end
+    once, then clamped to the cache), and attends to positions
     ``<= cache_len`` of the zero-filled cache.  Returns (out, cache_k, cache_v).
     """
     B, S, _ = x.shape
-    positions = torch.full((B, S), cache_len, dtype=torch.int32, device=x.device)
+    n = (cache_len if isinstance(cache_len, torch.Tensor)
+         else torch.full((), cache_len, dtype=torch.long, device=x.device))
+    positions = n.to(torch.int32).expand(B, S)
     q, k, v = _qkv(params, x, n_heads, n_kv, head_dim, positions, qk_norm,
                    rope_theta, norm_eps, kernels)
     S_max = cache_k.shape[1]
-    start = min(max(int(cache_len), 0), S_max - S)
-    cache_k[:, start:start + S] = k.to(cache_k.dtype)
-    cache_v[:, start:start + S] = v.to(cache_v.dtype)
+    if isinstance(cache_k, DTensor):
+        # the mesh path runs eagerly with an int cache_len: DTensor has no
+        # sharding rule for index_copy_
+        start = int(cache_len)
+        start = min(max(start + S_max if start < 0 else start, 0), S_max - S)
+        cache_k[:, start:start + S] = k.to(cache_k.dtype)
+        cache_v[:, start:start + S] = v.to(cache_v.dtype)
+    else:
+        start = torch.where(n < 0, n + S_max, n).long().clamp(0, S_max - S)
+        rows = start + torch.arange(S, device=x.device)
+        cache_k.index_copy_(1, rows, k.to(cache_k.dtype))
+        cache_v.index_copy_(1, rows, v.to(cache_v.dtype))
     scale = 1.0 / math.sqrt(head_dim)
 
     def attend(q, cache_k, cache_v, reduce=None):
@@ -212,7 +227,7 @@ def attention_decode(params, x, cache_k, cache_v, cache_len: int, *, n_heads,
         vv = _repeat_kv(cache_v, q.shape[2])
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float())
         logits = (logits if reduce is None else reduce(logits)) * scale
-        mask = torch.arange(S_max, device=q.device) <= cache_len   # current token included
+        mask = torch.arange(S_max, device=q.device) <= n   # current token included
         logits = torch.where(mask, logits, NEG_INF)
         p = torch.softmax(logits, dim=-1)
         return torch.einsum("bhqk,bkhd->bqhd", p, vv.float()).to(x.dtype)

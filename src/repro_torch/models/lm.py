@@ -367,11 +367,14 @@ def _attention_decode_block(cfg: ArchConfig, p, x, cache_k, cache_v, cache_len, 
     return x + h
 
 
-def decode_step(params, cache, tokens, cache_len: int, cfg: ArchConfig,
+def decode_step(params, cache, tokens, cache_len, cfg: ArchConfig,
                 kernels: bool = True):
     """One-token decode.  tokens: (B, 1) int (audio: (B, K, 1)).  Returns
     (logits, cache): logits (B, 1, vocab) (audio: (B, 1, K, vocab)); the
-    cache is updated in place.  The ssm family ignores ``cache_len``; the
+    cache is updated in place.  ``cache_len`` is a Python int or a 0-d
+    integer tensor on the cache's device (``attention_decode``): nothing on
+    the step's path reads a tensor on the host, so the engine captures it
+    once as a CUDA graph.  The ssm family ignores ``cache_len``; the
     hybrid's shared block uses it for its KV caches.  The vlm family decodes
     tokens only, as the reference does."""
     if cfg.family == "audio":

@@ -6,6 +6,7 @@ H100: ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -963,3 +964,86 @@ def test_one_rank_nccl_mesh_step_is_the_unsharded_step(dev, arch):
         assert {k: float(v) for k, v in m.items()} == {k: float(v) for k, v in plain_m.items()}
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's decode step, captured once as a CUDA graph
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs import ARCH_IDS  # noqa: E402
+from repro_torch.kernels import counts  # noqa: E402
+from repro_torch.serving import ServeConfig, ServingEngine  # noqa: E402
+
+ENGINE_SC = dict(max_len=32, active_slots=4, total_pages=16)
+
+
+def _engine_workload(kind):
+    """(ServeConfig fields, prompts, max_new): 7 requests on 4 slots (as
+    tests/test_torch_serving.py's), 250-token prompts that cross a page
+    boundary with one spare page (preemption), or more steps than max_len
+    (cache_len clamped at max_len - 1)."""
+    if kind == "preemption":
+        return dict(max_len=32, active_slots=2, total_pages=3), [[1] * 250, [2] * 250, [3] * 5], \
+            [12, 12, 6]
+    if kind == "clamp":
+        return dict(max_len=6, active_slots=2, total_pages=8), [[5], [6, 7]], [9, 4]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, rng.integers(1, 8)).tolist() for _ in range(7)]
+    return ENGINE_SC, prompts, [int(rng.integers(2, 10)) for _ in prompts]
+
+
+def _engines(dev, arch, sc_kw):
+    """The compiled and the eager engine on one set of smoke weights."""
+    cfg = get_smoke(arch)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    sc = ServeConfig(**sc_kw)
+    return (ServingEngine(cfg, params, sc, device=dev),
+            ServingEngine(cfg, params, sc, device=dev, graphs=False))
+
+
+@pytest.mark.parametrize("arch,kind", [(a, "requests") for a in ARCH_IDS]
+                         + [("tinyllama-1.1b", "preemption"), ("tinyllama-1.1b", "clamp")])
+def test_compiled_engine_gives_the_eager_engines_tokens(dev, arch, kind):
+    sc_kw, prompts, max_new = _engine_workload(kind)
+    compiled, eager = _engines(dev, arch, sc_kw)
+    assert compiled.graph is not None and eager.graph is None
+    for engine in (compiled, eager):
+        for p, m in zip(prompts, max_new):
+            engine.submit(p, max_new_tokens=m)
+    assert compiled.run() == eager.run()
+    assert compiled.steps == eager.steps
+    assert compiled.sched.preemptions == eager.sched.preemptions
+    if kind == "preemption":
+        assert compiled.sched.preemptions > 0
+    if kind == "clamp":
+        assert compiled.steps > sc_kw["max_len"]
+    assert compiled.aau.used_count == 0
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "zamba2-1.2b", "musicgen-large"])
+def test_replayed_step_counts_the_eager_steps_launches(dev, arch):
+    before = counts.read()
+    compiled, eager = _engines(dev, arch, ENGINE_SC)
+    assert counts.read() == before, "warm-up and capture left launches counted"
+    before = counts.read()
+    eager.decode(0)
+    eager_step = counts.since(before)
+    before = counts.read()
+    compiled.decode(0)
+    torch.cuda.synchronize()
+    assert counts.since(before) == eager_step == compiled.step_launches
+    assert eager_step[(ltrf_matmul, "launches")] == eager_step[(ltrf_matmul, "launches_by_route")][
+        "decode"] > 0
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_capture_makes_no_sync(dev, arch):
+    cfg = get_smoke(arch)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine = ServingEngine(cfg, params, ServeConfig(**ENGINE_SC), device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert engine.graph is not None

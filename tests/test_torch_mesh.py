@@ -27,7 +27,6 @@
 import dataclasses
 import functools
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -399,19 +398,21 @@ FFN_BASE, FFN_EXPERTS = "granite-moe-3b-a800m", 3
 FFN_ARCH = f"{FFN_BASE}/e{FFN_EXPERTS}"
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def run_ranks(script: str, *args: str, world: int = 4, timeout: float = 600) -> str:
-    """``script`` in ``world`` processes (argv: rank, world, a free port,
-    then ``args``): rank 0's standard output; any rank failing fails."""
-    port = str(free_port())
+def run_ranks(script: str, *args: str, tmp: Path, world: int = 4,
+              timeout: float = 600) -> str:
+    """``script`` in ``world`` processes (argv: rank, world, the
+    ``init_method`` of a file store in the fresh directory ``tmp``, then
+    ``args``): rank 0's standard output; any rank failing fails.  The ranks
+    rendezvous through the file, not a TCP port: a port picked free and
+    released can be taken by another test's processes before the ranks bind
+    it.  Each script ends with a barrier, ``destroy_process_group`` and
+    ``os._exit(0)``: a rank was seen to abort in the interpreter's teardown
+    after its work was done ("terminate called without an active
+    exception") on a loaded host."""
+    store = f"file://{tmp / 'store'}"
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])}
-    procs = [subprocess.Popen([sys.executable, "-c", script, str(r), str(world), port, *args],
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r), str(world), store, *args],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
              for r in range(world)]
     try:
@@ -425,7 +426,7 @@ def run_ranks(script: str, *args: str, world: int = 4, timeout: float = 600) -> 
 
 
 SCRIPT = textwrap.dedent("""
-    import dataclasses, sys
+    import dataclasses, os, sys
     import torch, torch.distributed as dist
     from torch.distributed.tensor import Shard
     from repro_torch.configs import get_smoke, smoke_shape
@@ -435,7 +436,7 @@ SCRIPT = textwrap.dedent("""
     from repro_torch.runtime import train_step as TT
     from repro_torch.tree import tree_leaves
 
-    rank, world, port = (int(a) for a in sys.argv[1:4])
+    rank, world, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     cases = [c.split(":") for c in sys.argv[4].split(",")]      # arch, layout, fault
     torch.set_num_threads(1)
     real = sites._run
@@ -455,8 +456,7 @@ SCRIPT = textwrap.dedent("""
         return real(fn, mesh, args, ins, outs, grads)
 
     faults = {"": real, "grads": grads_dropped, "ffn": ffn_partial_dropped}
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=world)
+    dist.init_process_group("gloo", init_method=store, rank=rank, world_size=world)
     mesh = make_host_mesh(model=2, device="cpu")
     unsharded = {}
     for key, layout, fault in cases:
@@ -484,14 +484,18 @@ SCRIPT = textwrap.dedent("""
         ok = torch.allclose(loss1, loss0, rtol=2e-4, atol=1e-4) and all(
             torch.allclose(a, b, rtol=2e-4, atol=1e-4) for a, b in zip(g1, tree_leaves(g0)))
         print(f"CASE {key} {layout} {fault or '-'} {'OK' if ok else 'DIFFERS'}", flush=True)
+    dist.barrier()              # no rank tears its group down while another still talks
     dist.destroy_process_group()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)                 # the work is done: skip the interpreter's teardown
 """)
 
 
-def run_cases(cases) -> dict:
+def run_cases(cases, tmp: Path) -> dict:
     """(arch, layout, fault) -> "OK" or "DIFFERS" for each case, all in one
-    set of four ranks; fault "" plants nothing."""
-    out = run_ranks(SCRIPT, ",".join(":".join(c) for c in cases))
+    set of four ranks (their store in ``tmp``); fault "" plants nothing."""
+    out = run_ranks(SCRIPT, ",".join(":".join(c) for c in cases), tmp=tmp)
     got = {}
     for line in out.splitlines():
         if line.startswith("CASE "):
@@ -501,16 +505,17 @@ def run_cases(cases) -> dict:
     return got
 
 
-def run_2x2(archs, layouts, planted=False) -> dict:
+def run_2x2(archs, layouts, tmp: Path, planted=False) -> dict:
     fault = "grads" if planted else ""
-    cases = run_cases([(a, layout, fault) for a in archs for layout in layouts])
+    cases = run_cases([(a, layout, fault) for a in archs for layout in layouts], tmp)
     return {(a, layout): v for (a, layout, _), v in cases.items()}
 
 
 @pytest.fixture(scope="module")
-def sharded_cases():
+def sharded_cases(tmp_path_factory):
     return run_cases([(a, layout, "") for a in SHARDED_ARCHS for layout in SHARDED_LAYOUTS]
-                     + [(FFN_ARCH, "2d", ""), (FFN_ARCH, "2d", "ffn")])
+                     + [(FFN_ARCH, "2d", ""), (FFN_ARCH, "2d", "ffn")],
+                     tmp_path_factory.mktemp("ranks"))
 
 
 @pytest.mark.parametrize("layout", SHARDED_LAYOUTS)
@@ -519,10 +524,10 @@ def test_2x2_gloo_step_matches_the_unsharded_step(arch, layout, sharded_cases):
     assert sharded_cases[(arch, layout, "")] == "OK"
 
 
-def test_2x2_check_catches_partial_gradients_taken_as_whole():
+def test_2x2_check_catches_partial_gradients_taken_as_whole(tmp_path):
     """The sites' gradient placements dropped (a weight gathered over the
     batch's ranks given a replicated gradient): the 2x2 check must fail."""
-    assert run_2x2(("tinyllama-1.1b",), ("2d",), planted=True) == {
+    assert run_2x2(("tinyllama-1.1b",), ("2d",), tmp_path, planted=True) == {
         ("tinyllama-1.1b", "2d"): "DIFFERS"}
 
 

@@ -50,18 +50,17 @@ def jax_want(a: dict) -> np.ndarray:
 
 
 SCRIPT = """
-import sys
+import os, sys
 import numpy as np, torch, torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.distributed import pipeline_parallel as pp
 
-rank, world, port = (int(a) for a in sys.argv[1:4])
+rank, world, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 path, planted = sys.argv[4], sys.argv[5] == "1"
 torch.set_num_threads(1)
 if planted:     # the shift to the next stage dropped: every stage reads zeros
     pp._shift = lambda y, idx, n, group: torch.zeros_like(y)
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                        world_size=world)
+dist.init_process_group("gloo", init_method=store, rank=rank, world_size=world)
 mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("stage",))
 a = np.load(path)
 params = {"w": torch.from_numpy(a["w"]), "b": torch.from_numpy(a["b"])}
@@ -72,14 +71,18 @@ if rank == 0:
 gathered = [torch.empty_like(out) for _ in range(world)]
 dist.all_gather(gathered, out)
 assert all(torch.equal(g, out) for g in gathered), "ranks returned different outputs"
+dist.barrier()                  # no rank tears its group down while another still talks
 dist.destroy_process_group()
+sys.stdout.flush()
+sys.stderr.flush()
+os._exit(0)                     # the work is done: skip the interpreter's teardown
 """
 
 
 def gpipe(tmp_path, planted=False) -> np.ndarray:
     path = str(tmp_path / "inputs.npz")
     np.savez(path, **inputs())
-    run_ranks(SCRIPT, path, "1" if planted else "0", world=STAGES, timeout=300)
+    run_ranks(SCRIPT, path, "1" if planted else "0", tmp=tmp_path, world=STAGES, timeout=300)
     return np.load(path + ".out.npy")
 
 
