@@ -7,8 +7,9 @@ Phases, each printing one JSON line with its wall time (any failure raises and
 exits non-zero; no phase's error is caught):
 
 1. device  -- ``nvidia-smi`` name and power limit.
-2. build   -- the three Hopper kernels and the two backward kernels
-   (``flash_attention_bwd.cu``, ``ssd_scan_bwd.cu``) from
+2. build   -- the three Hopper kernels, the two backward kernels
+   (``flash_attention_bwd.cu``, ``ssd_scan_bwd.cu``) and the batch
+   simulator's run loop (``sim_batch.cu``, with ``-fmad=false``) from
    ``src/repro_torch/csrc`` (nvcc, in parallel) into ``build/kernels/``,
    started here and each finished at its first use, so the compiles overlap
    the first kernel checks; ``build_logs``, after the checks, records each
@@ -125,7 +126,10 @@ exits non-zero; no phase's error is caught):
     kernel timed.
 19. sweep_service -- the simulator's sweep service
     (``repro_torch.serving.SimRunner(device="cuda", batch=True)``) driving the
-    batch simulator on the card, each simulated result held field by field,
+    batch simulator on the card, whose every chunk is one launch of the
+    ``sim_batch`` kernel (no CUDA graph: each call's launches must equal its
+    chunks, each chunk printed with its lanes, ticks and the kernel's µs a
+    tick), each simulated result held field by field,
     ``cycle_breakdown`` included, to the port's scalar ``engine.simulate`` (or
     ``simulate_gpu`` over it) run meanwhile on the host in worker processes:
     (a) the tracked sweep (``benchmarks/sweep_subset.py::sweep_jobs``, 14
@@ -151,11 +155,15 @@ exits non-zero; no phase's error is caught):
     with no job completed elsewhere; (f) the service's sweep metrics.
 20. sim_batch -- the batch simulator (``repro_torch.sim.batch``) driven
     directly on the card: ``run_batch(..., fallback=False, device="cuda")`` at
-    8 lanes per launch on all 7 designs x 4 workloads at Table-2 #7, each
-    result held to the scalar engine; lanes per launch, launches, ticks, graph
-    captures, the card's wall, ms a tick for eager blocks and for graph replay
-    and the device-busy share of a block (profiler), for that chunk and for
-    the tracked sweep's widest; a planted fault (the DRAM queue's interval one
+    8 lanes per launch on all 7 designs x 4 workloads at Table-2 #7 (the
+    kernel, one launch a chunk), each result held to the scalar engine;
+    the same chunks' final state from the kernel held plane by plane, bit
+    for bit, to the plain PyTorch tick run on the card (``engine="plain"``,
+    its blocks replayed as CUDA graphs); lanes per launch, launches, ticks,
+    the card's wall, the kernel's µs a tick, registers and spills, and the
+    plain tick's ms a tick for eager blocks and for graph replay and the
+    device-busy share of a block (profiler), for that chunk and for the
+    tracked sweep's widest; a planted fault (the DRAM queue's interval one
     cycle longer) must make some job differ.
 21. traced_sweep -- the traced suite: the port's own kernels' plain versions
     and layers lifted through ``torch.fx`` (``repro_torch.frontend``) into the
@@ -201,12 +209,14 @@ exits non-zero; no phase's error is caught):
     ``mamba2._split_proj``, and failed above 40 % of those when it gathered
     once a slice.
 23. a ``{"kernels": [...]}`` line: launches on the main paths (phases 4, 5,
-    7-17 and 22, each counted from 0) in all and per route, error, times and
+    7-17 and 22, each counted from 0; ``sim_batch``'s on phases 19-21) in
+    all and per route, error, times and
     bounds per kernel, and each kernel's training launches and backward
     (flash's and ssd_scan's: the backward kernel's source, its launches on
     phases 16-18 and 22, each of which must launch one, and its time beside
     its bound, its plain version and the library call).
-24. the last line: ``{"ok": true, "device": {...}}``.
+24. the phases' walls and the script's total on one line, then the last
+    line: ``{"ok": true, "device": {...}}``.
 
 Weights are random (seeded); the port imports neither jax nor the JAX package.
 Each model's weights are freed before the next model is made.  Bounds use the
@@ -241,6 +251,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # CUDA starts (train_tinyllama's and train_replay's deterministic steps)
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -263,6 +274,7 @@ from repro_torch.frontend.workloads import TRACED_NAMES, build_traced_workload  
 from repro_torch.data import batch_for_step  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.ltrf_matmul import ops as mm_ops  # noqa: E402
+from repro_torch.kernels.sim_batch import ops as sim_ops  # noqa: E402
 from repro_torch.distributed import (  # noqa: E402
     default_rules, pipeline_forward, reshard_state, sequential_reference,
 )
@@ -572,7 +584,8 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-BUILT = (*KERNELS, *BWD_SOURCES.values())
+SIM_SOURCE = "sim_batch"     # the batch simulator's run loop: no TPU kernel
+BUILT = (*KERNELS, *BWD_SOURCES.values(), SIM_SOURCE)
 
 
 def phase_build() -> dict:
@@ -2265,6 +2278,8 @@ def sim_card_run(jobs, sub_lanes) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     stats = {**sim_batch.RUN_STATS, **sim_batch.BLOCK_STATS}
+    check(stats["compiles"] == 0 and stats["replays"] == 0,
+          f"run_batch on the card captured {stats['compiles']} graphs; the kernel needs none")
     instr = sum(r.instructions for r in res)
     return {"results": [dataclasses.asdict(r) for r in res], "jobs": len(jobs),
             "lanes_per_launch": lanes_per_launch, "launches": stats["launches"],
@@ -2336,6 +2351,68 @@ def sim_tick_times(lanes, blocks: int = 10) -> dict:
             "reruns": run.stats["reruns"]}
 
 
+def sim_chunk_line(lanes, state, stats) -> dict:
+    """One chunk's kernel run: lanes, ticks (its longest lane's), launches,
+    the launch's time on the card and the kernel's µs a tick."""
+    ticks = int(state["guard"])
+    ms = stats.get("kernel_ms")
+    return {"lanes": len(lanes), "ticks": ticks, "launches": stats["blocks"],
+            "graph_captures": stats["captures"], "kernel_ms": ms,
+            "us_per_tick": None if ms is None or not ticks else 1e3 * ms / ticks}
+
+
+def sim_kernel_tick(lanes) -> dict:
+    """One chunk run alone by the kernel: its launch's time, ticks, µs a
+    tick, and its bound: the planes read once and the state written once
+    over the launch (bytes; a chain of dependent ticks has no useful
+    roofline)."""
+    co, st = sim_batch._build(lanes)
+    run = sim_batch._KernelChunk(co, st, torch.device("cuda"))
+    run.launch()
+    run.settle()
+    line = sim_chunk_line(lanes, {"guard": run.s["guard"].item()}, run.stats)
+    nbytes = (sum(t.numel() * t.element_size() for t in run.co.values())
+              + 2 * sum(t.numel() * t.element_size() for t in run.s.values()))
+    return {**line, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "plane_bytes": nbytes}
+
+
+def sim_kernel_vs_plain(jobs, sub_lanes) -> dict:
+    """The kernel's final state against the plain tick's on the card, chunk
+    by chunk and plane by plane, bit for bit (``sub_lanes`` lanes a chunk):
+    planes that differ, the largest absolute difference, both walls."""
+    chunks = sim_chunks(jobs, sub_lanes)
+    cuda = torch.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kernel = sim_batch._run_chunks(chunks, cuda)
+    kernel_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = sim_batch._run_chunks(chunks, cuda, engine="plain")
+    plain_wall = time.perf_counter() - t0
+    differ, max_abs = [], 0.0
+    for i, ((got, _), (want, _)) in enumerate(zip(kernel, plain)):
+        check(sorted(got) == sorted(want), f"sim_batch: chunk {i}'s kernel state has keys "
+                                           f"{sorted(got)}, the plain tick's {sorted(want)}")
+        for key in want:
+            a, b = got[key], want[key]
+            if a.dtype != b.dtype or a.shape != b.shape:
+                differ.append(f"chunk {i} {key}: {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+                continue
+            if not np.array_equal(a, b):
+                differ.append(f"chunk {i} {key}")
+            if a.size:
+                max_abs = max(max_abs, float(np.abs(a.astype(np.float64)
+                                                    - b.astype(np.float64)).max()))
+    check(not differ, f"sim_batch: the kernel's final state differs from the plain tick's "
+                      f"on the card: {differ[:8]}")
+    return {"chunks": len(chunks), "lanes": [len(c) for c in chunks],
+            "ticks": [int(st["guard"]) for st, _ in kernel], "planes": len(plain[0][0]),
+            "differ": differ, "max_abs_err": max_abs, "kernel_wall_s": kernel_wall,
+            "plain_wall_s": plain_wall,
+            "kernel_ms": [stats["kernel_ms"] for _, stats in kernel]}
+
+
 def sim_mismatches(card: list, scalar: list) -> list:
     return [i for i, (a, b) in enumerate(zip(card, scalar)) if a != b]
 
@@ -2384,13 +2461,19 @@ def engine_calls():
 
     def timed(lane_chunks, device, **opts):
         t0 = time.perf_counter()
+        launched = sim_ops.sim_batch.launches
         out = inner(lane_chunks, device, **opts)
         if threading.get_ident() != owner:
             return out
-        chunks = [{"lanes": len(c), "ticks": int(state["guard"])}
-                  for c, (state, _) in zip(lane_chunks, out)]
+        chunks = [sim_chunk_line(c, state, stats) for c, (state, stats) in zip(lane_chunks, out)]
+        kernel_launches = sim_ops.sim_batch.launches - launched
+        check(kernel_launches == len(chunks) and not any(c["graph_captures"] for c in chunks),
+              f"batch engine on the card: {kernel_launches} kernel launches and "
+              f"{sum(c['graph_captures'] for c in chunks)} graph captures for {len(chunks)} "
+              "chunks; one launch a chunk and no graph expected")
         calls.append({"jobs": sum(c["lanes"] for c in chunks), "device": str(device),
                       "wall_s": time.perf_counter() - t0, "launches": len(chunks),
+                      "kernel_launches": kernel_launches,
                       "ticks": sum(c["ticks"] for c in chunks), "chunks": chunks})
         return out
 
@@ -2548,6 +2631,8 @@ def service_tracked(cache_dir, jobs, scalar_f, meanwhile, out) -> tuple:
     out["tracked"] = {
         "jobs": len(jobs), "identical": len(jobs) - len(bad),
         "batched": runner.stats["batched"], "service_wall_s": wall,
+        "kernel_chunks": [ch for c in calls for ch in c["chunks"]],
+        "longest_lane_ticks": max(ch["ticks"] for c in calls for ch in c["chunks"]),
         "engine_wall_s": sum(c["wall_s"] for c in calls),
         "service_overhead_s": wall - sum(c["wall_s"] for c in calls),
         "sim_instructions": instr, "sim_instr_per_s": instr / wall,
@@ -2630,6 +2715,9 @@ def phase_sweep_service(dev, seed) -> dict:
                 check(not bad_d, f"sweep_service hybrid ({k}): {len(bad_d)} of "
                                  f"{len(confirmed)} confirmations differ from the scalar engine")
                 h["identical"] = len(confirmed) - len(bad_d)
+        # the main path's launches: (a), (c) and (d)'s runs ((e) launches none)
+        out["kernel_launches"] = sum(c["kernel_launches"] for part in (
+            out["tracked"], out["whole_gpu"], *hybrid.values()) for c in part["engine_calls"])
         # (f) the service's metrics
         snap = runner.metrics_snapshot()
         out["metrics"] = {k: v for k, v in snap.items()
@@ -2654,7 +2742,11 @@ def phase_sim_batch(dev, seed) -> dict:
     with concurrent.futures.ProcessPoolExecutor(SIM_SCALAR_WORKERS, mp_context=ctx) as pool:
         scalar_f = [pool.submit(sim_scalar, j) for j in narrow]
         fault_f = [pool.submit(sim_scalar, j) for j in fault_jobs]
+        launched = sim_ops.sim_batch.launches
         at8 = sim_card_run(narrow, SIM_NARROW_LANES)
+        main_launches = sim_ops.sim_batch.launches - launched
+        # the kernel's final state against the plain tick's, on the card
+        versus = sim_kernel_vs_plain(narrow, SIM_NARROW_LANES)
         # a planted fault: the DRAM queue's interval one cycle longer
         # (reference :855), a single float64 site
         build = sim_batch._build
@@ -2673,16 +2765,26 @@ def phase_sim_batch(dev, seed) -> dict:
     check(not bad8, f"sim_batch at {SIM_NARROW_LANES} lanes: {len(bad8)} jobs differ")
     fault_bad = sim_mismatches(faulty["results"], fault_scalar)
     check(len(fault_bad) > 0, "sim_batch: the planted DRAM-interval fault passed the check")
-    # ms a tick, eagerly and replayed, and the busy share, for the widest
-    # chunk of the tracked sweep and for an 8-lane chunk of the comparison
+    # the kernel's µs a tick, and the plain tick's ms a tick eagerly and
+    # replayed and its busy share, for the widest chunk of the tracked sweep
+    # and for an 8-lane chunk of the comparison
     widest = max(sim_chunks(jobs, sim_batch._SUB_LANES["cuda"]), key=len)
-    times = {"widest": sim_tick_times(widest),
-             "narrow": sim_tick_times(max(sim_chunks(narrow, SIM_NARROW_LANES), key=len))}
+    narrow8 = max(sim_chunks(narrow, SIM_NARROW_LANES), key=len)
+    log = (_build.BUILD_DIR / f"{SIM_SOURCE}.log").read_text()
+    kernel_t = {"widest": sim_kernel_tick(widest), "narrow": sim_kernel_tick(narrow8)}
+    times = {"widest": sim_tick_times(widest), "narrow": sim_tick_times(narrow8)}
     for run in (at8, faulty):
         del run["results"]
     widest_t, narrow_t = times["widest"], times["narrow"]
     return {
+        "kernel_launches": main_launches,
+        "kernel": {"widest": kernel_t["widest"], "narrow": kernel_t["narrow"],
+                   "ptxas": ptxas_summary(log),
+                   "ptxas_lines": [ln.strip() for ln in log.splitlines()
+                                   if "registers" in ln or "spill" in ln]},
+        "kernel_vs_plain": versus,
         "widest_lanes": len(widest),
+        "plain_tick": "the figures below are the plain PyTorch tick's (engine='plain')",
         "eager_ms_per_tick": widest_t["eager_ms_per_tick"],
         "graph_ms_per_tick": widest_t["graph_ms_per_tick"],
         "device_ms_per_tick": widest_t["device_ms_per_tick"],
@@ -2691,8 +2793,10 @@ def phase_sim_batch(dev, seed) -> dict:
                        "workloads": list(SIM_NARROW_WORKLOADS),
                        **{k: at8[k] for k in ("launches", "ticks", "graph_captures", "wall_s",
                                               "sim_instr_per_s")},
-                       **{k: narrow_t[k] for k in ("eager_ms_per_tick", "graph_ms_per_tick",
-                                                   "device_ms_per_tick", "device_busy_share")}},
+                       "kernel_us_per_tick": kernel_t["narrow"]["us_per_tick"],
+                       "plain_tick": {k: narrow_t[k] for k in (
+                           "eager_ms_per_tick", "graph_ms_per_tick", "device_ms_per_tick",
+                           "device_busy_share")}},
         "planted_fault": {"fault": "DRAM-queue interval one cycle longer (reference :855)",
                           "jobs": len(fault_jobs), "mismatched": len(fault_bad)},
         "narrow_run": at8, "tick_times": times,
@@ -2814,18 +2918,21 @@ def phase_traced_sweep(dev, seed) -> dict:
             "report": report_line(report)}
     finally:
         shutil.rmtree(cache, ignore_errors=True)
-    # (c) traced_matmul's pins through run_batch on the card, and in the same
-    # call (d) a planted lift fault: the dot loop's trip count one higher
+    # (c) traced_matmul's pins through run_batch on the card (the main path's
+    # last run), then (d) in a call of its own a planted lift fault: the dot
+    # loop's trip count one higher
     w = get_workload("traced_matmul")
     (loop, trips), = w.trips.items()
     planted = dataclasses.replace(w, trips={loop: trips + 1})
     cfgs = [design_config(d, table2_config=7, num_warps=16) for d in SIM_DESIGNS]
+    launched = sim_ops.sim_batch.launches
     t0 = time.perf_counter()
-    res = sim_run_batch([(w, c) for c in cfgs] + [(planted, c) for c in cfgs],
-                        fallback=False, device="cuda")
+    res = sim_run_batch([(w, c) for c in cfgs], fallback=False, device="cuda")
     pins_wall = time.perf_counter() - t0
-    pins = [sim_counters(r) for r in res[:len(cfgs)]]
-    faulty = [sim_counters(r) for r in res[len(cfgs):]]
+    pins_launches = sim_ops.sim_batch.launches - launched
+    pins = [sim_counters(r) for r in res]
+    faulty = [sim_counters(r) for r in sim_run_batch([(planted, c) for c in cfgs],
+                                                     fallback=False, device="cuda")]
     wrong = [d for d, got in zip(SIM_DESIGNS, pins) if got != TRACED_MATMUL_GOLDEN[d]]
     check(not wrong, f"traced_sweep: traced_matmul differs from TRACED_MATMUL_GOLDEN on {wrong}")
     caught = [d for d, got in zip(SIM_DESIGNS, faulty) if got != TRACED_MATMUL_GOLDEN[d]]
@@ -2833,9 +2940,11 @@ def phase_traced_sweep(dev, seed) -> dict:
           f"traced_sweep: the planted trip-count fault passed on "
           f"{sorted(set(SIM_DESIGNS) - set(caught))}")
     out["matmul_pins"] = {"designs": len(SIM_DESIGNS), "identical": len(SIM_DESIGNS),
-                          "wall_s": pins_wall,
+                          "wall_s": pins_wall, "kernel_launches": pins_launches,
                           "planted_fault": {"fault": f"trip count of {loop} {trips} -> {trips + 1}",
                                             "designs_caught": len(caught)}}
+    # the main path's launches: (b)'s runs and (c)'s, not (d)'s
+    out["kernel_launches"] = sum(c["kernel_launches"] for c in calls) + pins_launches
     return out
 
 
@@ -3120,12 +3229,39 @@ def phase_mesh(cfgs, dev, seed, dryrun, tracked_wall_s, card) -> dict:
     return out
 
 
-def kernels_line(cfgs, checks, paths, routes, trained, grads, bwd_paths) -> dict:
+def sim_kernel_entry(sim, sim_paths) -> dict:
+    """The kernels line's entry of the batch simulator's kernel: ``sim`` is
+    phase sim_batch's result, ``sim_paths`` the kernel's launches on each
+    simulator phase."""
+    w, n = sim["kernel"]["widest"], sim["kernel"]["narrow"]
+    per_tick = 1.0 / w["ticks"]
+    return {
+        "name": "sim_batch", "route": "cuda", "source": f"src/repro_torch/csrc/{SIM_SOURCE}.cu",
+        "replaces": "src/repro/sim/batch.py:1102",
+        "replaces_note": ("not a TPU kernel: the counterpart of _run_jax's lax.while_loop "
+                          "(src/repro/sim/batch.py:629-1102)"),
+        "launches": sum(sim_paths.values()), "launches_by_path": sim_paths,
+        "max_abs_err": sim["kernel_vs_plain"]["max_abs_err"],
+        "ms": w["kernel_ms"] * per_tick, "plain_ms": sim["graph_ms_per_tick"],
+        "bound_ms": w["bound_ms"] * per_tick, "bound_by": w["bound_by"], "library_ms": None,
+        "library_note": "no PyTorch call simulates the tick",
+        "unit": (f"one tick of the tracked sweep's widest chunk ({w['lanes']} lanes, "
+                 f"{w['ticks']} ticks in one launch); plain_ms: the plain tick's replayed "
+                 "graph block, per tick; bound_ms: the chunk's planes read once and its state "
+                 "written once over the launch, per tick (a chain of dependent ticks has no "
+                 "useful roofline)"),
+        "narrow": {"lanes": n["lanes"], "ticks": n["ticks"], "us_per_tick": n["us_per_tick"],
+                   "plain_ms": sim["at_8_lanes"]["plain_tick"]["graph_ms_per_tick"]},
+        "ptxas": sim["kernel"]["ptxas"]}
+
+
+def kernels_line(cfgs, checks, paths, routes, trained, grads, bwd_paths, sim_entry) -> dict:
     """``paths``: each main path's launch counts, by phase; ``routes``: the
     same per route, for the kernels that have routes; ``trained`` and
     ``grads``: the train_tinyllama and train_grads results (each kernel's
     training launches and its backward's time); ``bwd_paths``: each training
-    phase's backward kernel launches."""
+    phase's backward kernel launches; ``sim_entry``: the batch simulator's
+    kernel's entry."""
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     bwd_launches = {n: sum(p[n] for p in bwd_paths.values()) for n in BWD_SOURCES}
     fb, sb = checks["flash_attention_bwd"][0], checks["ssd_scan_bwd"][0]
@@ -3241,6 +3377,7 @@ def kernels_line(cfgs, checks, paths, routes, trained, grads, bwd_paths) -> dict
              {"library_note": "no single PyTorch call computes it",
               "bound_tc_ms": sb["bound_tc_ms"]}),
              "train_grads_timing": grads["ssd_backward"]}},
+        sim_entry,
     ]}
 
 
@@ -3308,9 +3445,16 @@ def main() -> int:
             paths[name] = results[name]["launches"]
             routes[name] = results[name]["launches_by_route"]
         run("train_grads", phase_train_grads, dev, args.seed)
-        run("sweep_service", phase_sweep_service, dev, args.seed)
-        run("sim_batch", phase_sim_batch, dev, args.seed)
-        run("traced_sweep", phase_traced_sweep, dev, args.seed)
+        # the simulator's phases, the kernel's launch count set to 0 before
+        # each; each phase reports its main path's launches alone (its state
+        # comparison, timing and planted-fault runs do not count)
+        sim_paths = {}
+        for name, fn in (("sweep_service", phase_sweep_service), ("sim_batch", phase_sim_batch),
+                         ("traced_sweep", phase_traced_sweep)):
+            sim_ops.sim_batch.launches = 0
+            run(name, fn, dev, args.seed)
+            sim_paths[name] = results[name]["kernel_launches"]
+            check(sim_paths[name] > 0, f"{name} never launched the sim_batch kernel")
         run("mesh", phase_mesh, cfgs, dev, args.seed, dryrun,
             results["sweep_service"]["tracked"]["service_wall_s"],
             results["device"]["nvidia_smi"])
@@ -3322,7 +3466,8 @@ def main() -> int:
             check(got["flash_attention"] + got["ssd_scan"] > 0,
                   f"{name} launched no backward kernel: {got}")
         line = kernels_line(cfgs, results["kernel_checks"], paths, routes,
-                            results["train_tinyllama"], results["train_grads"], bwd_paths)
+                            results["train_tinyllama"], results["train_grads"], bwd_paths,
+                            sim_kernel_entry(results["sim_batch"], sim_paths))
         for k in line["kernels"]:
             check(k["launches"] > 0, f"{k['name']} never launched on the main path")
             if k["name"] in BWD_SOURCES:
@@ -3330,9 +3475,10 @@ def main() -> int:
                       f"{k['name']}'s backward never launched on the training paths")
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
+        total_s = time.perf_counter() - t_start
         (out_dir / "chip_smoke.json").write_text(json.dumps(
-            {**results, **line, "phase_s": phase_s, "total_s": time.perf_counter() - t_start},
-            indent=1))
+            {**results, **line, "phase_s": phase_s, "total_s": total_s}, indent=1))
+        emit({"phase_walls_s": phase_s, "total_s": total_s})
         emit(line)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})

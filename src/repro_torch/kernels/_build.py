@@ -2,7 +2,7 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/kernels/<name>-<hash>.so`` under the repository root (the hash covers
-the source and every ``csrc/*.cuh`` header it includes),
+its ``nvcc`` flags, the source and every ``csrc/*.cuh`` header it includes),
 at first use (or all at once, in parallel, through ``build``, which may
 return before the compiles end).  Nothing here runs at import time: the CPU
 tests import every module and have no ``nvcc``.
@@ -21,6 +21,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags a source needs beyond NVCC_FLAGS: the batch simulator's float64
+# sites must never contract a product into an FMA (csrc/sim_batch.cu)
+SOURCE_FLAGS = {"sim_batch": ("-fmad=false",)}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -49,8 +52,13 @@ def _sources(name: str) -> list[Path]:
     return paths
 
 
+def flags(name: str) -> tuple:
+    """``nvcc``'s flags for ``csrc/<name>.cu``."""
+    return (*NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()))
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256()
+    h = hashlib.sha256(" ".join(flags(name)).encode() + b"\0")
     for path in _sources(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
@@ -73,7 +81,7 @@ def build(names, wait: bool = True) -> dict[str, str]:
         if out.exists() or name in _PENDING:
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         _PENDING[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True), tmp, out)
     if not wait:

@@ -10,9 +10,10 @@ from __future__ import annotations
 
 from .flash_attention.ops import flash_attention, flash_bwd
 from .ltrf_matmul.ops import ltrf_matmul
+from .sim_batch.ops import sim_batch
 from .ssd_scan.ops import ssd_chunk_bwd, ssd_scan
 
-WRAPPERS = (ltrf_matmul, flash_attention, ssd_scan, flash_bwd, ssd_chunk_bwd)
+WRAPPERS = (ltrf_matmul, flash_attention, ssd_scan, flash_bwd, ssd_chunk_bwd, sim_batch)
 COUNTERS = ("launches", "launches_by_route", "launches_by_layout")
 
 

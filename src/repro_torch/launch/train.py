@@ -19,8 +19,10 @@ depth, keeping its widths.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
+import os
 import shutil
 import tempfile
 import time
@@ -36,6 +38,7 @@ from ..configs.base import ShapeConfig
 from ..data import DataConfig, PrefetchingLoader
 from ..distributed.fault import FaultConfig, FaultTolerantTrainer
 from ..distributed.sharding import default_rules, place, shardings_for
+from ..kernels._build import BUILD_DIR
 from ..optim.adamw import AdamWConfig
 from ..optim.compression import CompressionConfig
 from ..runtime.train_step import (
@@ -59,21 +62,40 @@ def train(arch_id: str, smoke: bool = True, steps: int = 50,
     dev = resolve_device(device)
     shape = ShapeConfig("driver", seq, batch, "train")
     own_group = not dist.is_initialized()
-    mesh = make_host_mesh(device=dev)
-    try:
-        rules = default_rules(mesh)
-        state = make_train_state(cfg, torch.Generator(dev).manual_seed(seed), dev)
-        state = place(state, shardings_for(rules, train_state_axes(cfg),
-                                           train_state_shapes(cfg)))
-        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=max(steps, 1))
-        comp = CompressionConfig(enabled=True) if compress else None
-        step_fn = build_train_step(cfg, opt_cfg, comp, n_micro=n_micro, rules=rules)
-        out = _run(cfg, arch_id, shape, state, step_fn, steps, ckpt_dir, ckpt_every,
-                   inject_failures, seed, dev)
-    finally:
-        if own_group:
-            dist.destroy_process_group()
+    with _inductor_cache(BUILD_DIR.parent / "torchinductor"):
+        mesh = make_host_mesh(device=dev)
+        try:
+            rules = default_rules(mesh)
+            state = make_train_state(cfg, torch.Generator(dev).manual_seed(seed), dev)
+            state = place(state, shardings_for(rules, train_state_axes(cfg),
+                                               train_state_shapes(cfg)))
+            opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=max(steps, 1))
+            comp = CompressionConfig(enabled=True) if compress else None
+            step_fn = build_train_step(cfg, opt_cfg, comp, n_micro=n_micro, rules=rules)
+            out = _run(cfg, arch_id, shape, state, step_fn, steps, ckpt_dir, ckpt_every,
+                       inject_failures, seed, dev)
+        finally:
+            if own_group:
+                dist.destroy_process_group()
     return out
+
+
+@contextlib.contextmanager
+def _inductor_cache(directory):
+    """Keep torch's inductor cache in ``directory`` for a run, unless the
+    caller set ``TORCHINDUCTOR_CACHE_DIR``, and put the variable back after.
+    The first DTensor a process builds imports ``torch._dynamo``, which makes
+    that cache, by default ``<tempdir>/torchinductor_<user>``: a run leaves
+    nothing in the temporary directory."""
+    key = "TORCHINDUCTOR_CACHE_DIR"
+    if key in os.environ:
+        yield
+        return
+    os.environ[key] = str(directory)
+    try:
+        yield
+    finally:
+        os.environ.pop(key, None)
 
 
 def _run(cfg, arch_id, shape, state, step_fn, steps, ckpt_dir, ckpt_every, inject_failures,

@@ -29,7 +29,11 @@ NEG_INF = -1e30
 
 
 def _init(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
-    """normal * scale, drawn in fp32 and cast (the JAX package's ``_init``)."""
+    """normal * scale, drawn in fp32 and cast (the JAX package's ``_init``).
+    On the meta device only the shape and dtype exist: nothing is drawn (a
+    draw or a product on meta tensors imports ``torch._dynamo``)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (x * scale).to(dtype)
 

@@ -119,7 +119,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator(dev).manual_seed(0)
     dt = cfg.torch_dtype
-    if cfg.family == "audio":     # one table per codebook, stacked (K, V, D)
+    if dev.type == "meta" and cfg.family == "audio":    # no stack on meta (see _init)
+        emb = torch.empty((cfg.n_codebooks, cfg.vocab, cfg.d_model), dtype=dt, device=dev)
+    elif cfg.family == "audio":   # one table per codebook, stacked (K, V, D)
         emb = torch.stack([init_embedding(gen, cfg.vocab, cfg.d_model, dt, dev)
                            for _ in range(cfg.n_codebooks)])
     else:
@@ -172,7 +174,10 @@ def param_axes(cfg: ArchConfig) -> dict:
 def param_shapes(cfg: ArchConfig) -> dict:
     """Meta tensors shaped as ``init_params(cfg)``'s, the head at its true
     width (``head_width``), not the width it is held at: shardings are
-    computed from these, so the padding never changes a spec."""
+    computed from these, so the padding never changes a spec.  Made with
+    ``torch.empty``, no numbers drawn, so nothing imports ``torch._dynamo``
+    (whose import makes a ``torchinductor_<user>`` directory in the
+    temporary directory)."""
     params = init_params(cfg, torch.Generator(), "meta")
     params["lm_head"] = params["lm_head"][:, :head_width(cfg)]
     return params

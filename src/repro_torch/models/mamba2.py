@@ -39,7 +39,8 @@ def init_mamba2(gen, d_model, d_state, headdim, expand, dtype, device) -> dict:
     return {
         "in_proj": _init(gen, (d_model, d_in_proj), s, dtype, device),
         "conv": _init(gen, (CONV_K, d_inner + 2 * d_state), 0.5, dtype, device),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, nheads, **f32)),
+        "A_log": (torch.empty((nheads,), **f32) if torch.device(device).type == "meta"
+                  else torch.log(torch.linspace(1.0, 16.0, nheads, **f32))),
         "dt_bias": torch.zeros((nheads,), **f32),
         "D": torch.ones((nheads,), **f32),
         "norm": torch.ones((d_inner,), **f32),

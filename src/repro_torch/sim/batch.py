@@ -5,10 +5,15 @@ event-heap, the JAX package's ``golden.py`` oracle) spend ~10us of Python per
 retired instruction.  This module runs the *same* discrete-event tick as a
 masked step over tensors indexed ``(lane, warp)`` in int64/float64: one step
 advances a whole batch of independent simulations together.  The reference
-runs its loop as one jitted ``lax.while_loop``; here the tick is eager
-PyTorch, run in blocks of ticks, and on a CUDA card each block is captured
-once as a ``torch.cuda.CUDAGraph`` and replayed, so the host checks whether
-any lane is still running once a block, not once a tick.
+runs its loop as one jitted ``lax.while_loop``; on a CUDA card its
+counterpart is one hand-written kernel (``csrc/sim_batch.cu``, wrapper
+``repro_torch.kernels.sim_batch``) that runs every tick of every lane of a
+chunk in one launch.  The tick below (``_tick_fn``) is that kernel's plain
+version: eager PyTorch, run in blocks of ticks.  The CPU runs it; the card
+runs it only where a caller asks for it (``engine="plain"`` on
+``_run_torch`` and ``_run_chunks``), each block then captured once as a
+``torch.cuda.CUDAGraph`` and replayed, so the host checks whether any lane
+is still running once a block, not once a tick.
 
 Correctness contract (the reference's): for every supported config the
 batch engine produces **bit-identical** `SimResult`s — every counter and the
@@ -43,12 +48,13 @@ one warp a pass.  Here one call activates them all at once: the warps a call
 takes are each lane's first READY resident warps in wid order, up to its
 free slots, and every effect of an activation lands on that warp's own rows
 except the inflight-prefetch slots, which the prefetching warps take in wid
-order, in a short loop.  On the card that loop has a fixed length ``k``; a
-device flag records whether some lane needed more, and a block that set it
-is rolled back to the snapshot taken at its start and replayed under the
-chunk's static bound (its lanes' largest active-slot cap), which cannot
-overflow.  On the CPU, where a sync costs nothing, the loop runs as long as
-the call's largest lane needs.
+order, in a short loop.  Where the plain tick runs on the card, that loop
+has a fixed length ``k``; a device flag records whether some lane needed
+more, and a block that set it is rolled back to the snapshot taken at its
+start and replayed under the chunk's static bound (its lanes' largest
+active-slot cap), which cannot overflow.  On the CPU, where a sync costs
+nothing, the loop runs as long as the call's largest lane needs.  The
+kernel needs none of this: its activation is exact.
 
 Supported domain (`batch_supported`): the paper's two-level scheduler,
 ``bank_model="none"``, untraced, single-SM configs — exactly the tracked
@@ -68,6 +74,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.pipeline import parse_interval_strategy
 from repro_torch.core.plan_cache import compile_for_sim
+from repro_torch.kernels.sim_batch import sim_batch
 from repro_torch.obs.attribution import CYCLE_CATEGORIES, check_breakdown, new_breakdown
 from repro_torch.workloads.suite import Workload
 
@@ -550,11 +557,12 @@ def _build(lanes: Sequence[_Lane]):
 
 _I64, _I32, _F64, _U8 = torch.int64, torch.int32, torch.float64, torch.uint8
 
-# Ticks a block and the activation prefetch bound, per device type.  The CPU
-# runs one tick a block with the exact activation (a host sync costs nothing
-# there); the card runs `_BLOCK["cuda"]` ticks a block, captured as a CUDA
-# graph, charging at most `_ACT_K["cuda"]` activation prefetches a lane and
-# call before the block is rolled back and rerun exactly.
+# The plain tick's ticks a block and activation prefetch bound, per device
+# type.  The CPU runs one tick a block with the exact activation (a host sync
+# costs nothing there); on the card (``engine="plain"``) it runs
+# `_BLOCK["cuda"]` ticks a block, captured as a CUDA graph, charging at most
+# `_ACT_K["cuda"]` activation prefetches a lane and call before the block is
+# rolled back and rerun exactly.
 _BLOCK = {"cpu": 1, "cuda": 32}
 _ACT_K = {"cpu": None, "cuda": 2}
 
@@ -1102,8 +1110,8 @@ class _Chunk:
         self.k = _ACT_K.get(kind) if act_k == "device" else act_k
         self.graphs = (kind == "cuda") if graphs is None else graphs
         self.dims = _dims(co, st)
-        self.co = {k: torch.from_numpy(np.array(v)).to(device) for k, v in co.items()}
-        self.s = {k: torch.from_numpy(np.array(v)).to(device) for k, v in _trash(st).items()}
+        self.co = _place(co, device)
+        self.s = _place(_trash(st), device)
         self.tick = _tick_fn(self.co, self.dims)
         self.flags = torch.ones(2, dtype=torch.bool, device=device)  # running, overflow
         self.snap = {k: torch.empty_like(t) for k, t in self.s.items()}
@@ -1198,27 +1206,124 @@ class _Chunk:
         return _untrash(self.s, W, self.dims[12], E, A)
 
 
-def _run_torch(co: dict, st: dict, device, **opts) -> dict:
+# The numbering csrc/sim_batch.cu is compiled with, the part of its layout
+# string after the planes and widths (``kernels.sim_batch.layout``): warp
+# status, opcode kind, warp row and meta columns, each in number order, then
+# the cycle categories.
+_KERNEL_NUMBERING = ";".join(
+    f"{section}=" + ",".join(name for _, name in sorted(names.items())) for section, names in (
+        ("status", {ACTIVE: "ACTIVE", INACTIVE_READY: "READY", INACTIVE_WAIT: "WAIT",
+                    PREFETCH: "PREFETCH", DONE: "DONE"}),
+        ("ops", {_OP_OTHER: "OTHER", _OP_BRA: "BRA", _OP_EXIT: "EXIT", _OP_SET: "SET",
+                 _OP_LD: "LD"}),
+        ("wf", {F_ST: "ST", F_PC: "PC", F_IV: "IV", F_RA: "RA", F_IS: "IS", F_MO: "MO",
+                _F_LC: "LC"}),
+        ("meta", {M_KIND: "KIND", M_NACC: "NACC", M_PDST: "PDST", M_TGT: "TGT",
+                  M_TRIPS: "TRIPS", M_LSL: "LSL", M_DSL: "DSL", M_IVPC: "IVPC"}),
+        ("cats", dict(enumerate(CYCLE_CATEGORIES)))))
+
+
+def _place(arrays: dict, device: torch.device) -> dict:
+    """Numpy arrays -> tensors on ``device``."""
+    return {k: torch.from_numpy(np.array(v)).to(device) for k, v in arrays.items()}
+
+
+def _card_stream(device: torch.device):
+    return torch.cuda.Stream(device)
+
+
+class _KernelChunk:
+    """One chunk's run on the card as one launch of ``csrc/sim_batch.cu``,
+    on the chunk's own stream: the planes are placed as `_Chunk` places
+    them, the kernel runs every lane to completion, and the state reads as
+    `_Chunk`'s does.  No block, no activation bound, no snapshot, no graph;
+    ``stats`` keeps `_Chunk`'s keys (one block, nothing captured) and adds
+    ``kernel_ms``, the launch's time on the card (CUDA events)."""
+
+    def __init__(self, co: dict, st: dict, device: torch.device):
+        if device.type != "cuda":
+            raise ValueError(f"the batch simulator's kernel runs on a CUDA device, not "
+                             f"{device}; the CPU runs the plain tick (engine='plain')")
+        self.device = device
+        self.dims = _dims(co, st)
+        self.co = _place(co, device)
+        self.s = _place(_trash(st), device)
+        self.stream = _card_stream(device)
+        self.events = None
+        self.done = False
+        self.stats = {"blocks": 0, "eager_blocks": 0, "replays": 0, "reruns": 0,
+                      "captures": 0, "capture_s": 0.0, "kernel_ms": None}
+
+    def launch(self) -> None:
+        if self.done:
+            return
+        # the planes were copied on the device's current stream
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        self.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with torch.cuda.stream(self.stream):
+            self.events[0].record()
+            sim_batch(self.co, self.s, self.dims, self.stream.cuda_stream, _KERNEL_NUMBERING)
+            self.events[1].record()
+        self.stats["blocks"] += 1
+        self.done = True
+
+    def settle(self) -> None:
+        """Wait for the launch; the caller's stream then follows the chunk's."""
+        if self.stats["kernel_ms"] is None:
+            self.events[1].synchronize()
+            self.stats["kernel_ms"] = self.events[0].elapsed_time(self.events[1])
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+    def state(self) -> dict:
+        """The final state: the reference's keys, shapes and dtypes."""
+        K, W, NWF, A, E = self.dims[:5]
+        return _untrash(self.s, W, self.dims[12], E, A)
+
+
+def _engine(device: torch.device, engine: str | None) -> str:
+    """The batch simulator's engine on ``device``: the kernel on the card,
+    the plain tick on the CPU, unless the caller names one."""
+    engine = engine or ("kernel" if device.type == "cuda" else "plain")
+    if engine not in ("kernel", "plain"):
+        raise ValueError(f"engine {engine!r}: 'kernel' or 'plain'")
+    return engine
+
+
+def _new_chunk(co: dict, st: dict, device: torch.device, engine: str, opts: dict):
+    if engine == "kernel":
+        if opts:
+            raise TypeError(f"the kernel runs a chunk in one launch: no {sorted(opts)}")
+        return _KernelChunk(co, st, device)
+    return _Chunk(co, st, device, **opts)
+
+
+def _run_torch(co: dict, st: dict, device, engine: str | None = None, **opts) -> dict:
     """Advance every lane to completion on ``device``: the reference's
     ``_run_jax``, with the same state dict in and out (numpy in, device
-    tensors out).  ``opts`` (``block``, ``act_k``, ``graphs``) override the
-    device's defaults; the results do not depend on them."""
-    chunk = _Chunk(co, st, resolve_device(device), **opts)
+    tensors out).  On the card the kernel runs it, unless ``engine="plain"``
+    asks for the plain tick, whose ``opts`` (``block``, ``act_k``,
+    ``graphs``) override the device's defaults; the results depend on
+    neither."""
+    dev = resolve_device(device)
+    chunk = _new_chunk(co, st, dev, _engine(dev, engine), opts)
     while not chunk.done:
         chunk.launch()
         chunk.settle()
     return chunk.state()
 
 
-def _run_chunks(chunks: list, device: torch.device, **opts) -> list[tuple[dict, dict]]:
-    """Run several chunks together: each block of every live chunk is
-    enqueued (on the card, each chunk on its own stream, so their small
-    kernels overlap) before any chunk's flags are read.  Returns each
-    chunk's final state (numpy) and run counters, in order."""
+def _run_chunks(chunks: list, device: torch.device, engine: str | None = None,
+                **opts) -> list[tuple[dict, dict]]:
+    """Run several chunks together, each on its own stream on the card: the
+    kernel's launches (one a chunk), or every live chunk's next block of
+    the plain tick (``engine="plain"``), are all enqueued before any is
+    waited for.  Returns each chunk's final state (numpy) and run counters,
+    in order."""
+    engine = _engine(device, engine)
     runs = []
     for lanes in chunks:
         co, st = _build(lanes)
-        runs.append(_Chunk(co, st, device, **opts))
+        runs.append(_new_chunk(co, st, device, engine, opts))
     t0 = time.perf_counter()
     live = list(runs)
     while live:
@@ -1244,14 +1349,16 @@ def _run_chunks(chunks: list, device: torch.device, **opts) -> list[tuple[dict, 
 
 
 # Launch accounting (the reference's keys): graph-capture wall on the card
-# (0 on the CPU) vs run wall, chunks launched, captures, and ticks counted as
+# (0 on the CPU and on the kernel path) vs run wall, chunks launched (one
+# kernel launch a chunk on the kernel path), captures, and ticks counted as
 # the reference's `guard` counts them.
 RUN_STATS = {"compile_s": 0.0, "run_s": 0.0,
              "compiles": 0, "launches": 0, "ticks": 0}
 
 # Blocks run, of which eager (the first block of each chunk, every block on
 # the CPU, and blocks run without a graph) and graph replays, and blocks
-# rolled back and rerun because an activation bound overflowed.
+# rolled back and rerun because an activation bound overflowed.  The kernel
+# path counts one block a chunk, none eager, replayed or rerun.
 BLOCK_STATS = {"blocks": 0, "eager_blocks": 0, "replays": 0, "reruns": 0}
 
 
@@ -1301,8 +1408,9 @@ def _extract(lane: _Lane, i: int, out: dict):
 # Lanes per sub-chunk within a shape group (see `_chunk_lanes`), per device
 # type.  The CPU keeps the reference's 8: a tick's cost there grows with the
 # lanes, so a length-sorted group retires its short lanes early in small
-# chunks.  On the card a tick of a few hundred small kernels costs about the
-# same for 8 lanes or 256, so each shape group runs as one wide chunk.
+# chunks.  On the card the kernel runs each lane on its own warp, so a chunk
+# takes its longest lane's time whatever its width, and each shape group
+# runs as one wide chunk.
 _SUB_LANES = {"cpu": 8, "cuda": 256}
 
 

@@ -284,6 +284,65 @@ def test_train_without_a_ckpt_dir_starts_afresh_and_cleans_up(tmp_path, monkeypa
     assert a["ckpt_timings"] and not list(tmp_path.iterdir())
 
 
+def test_train_cleans_up_in_a_fresh_process():
+    """The test above in a process of its own, where nothing has imported
+    ``torch._dynamo`` before ``train`` runs: neither ``param_shapes`` nor the
+    mesh's DTensors may leave a ``torchinductor_<user>`` directory in the
+    temporary directory."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items() if k != "TORCHINDUCTOR_CACHE_DIR"}
+    env["PYTHONPATH"] = os.pathsep.join([str(root / "src"), env.get("PYTHONPATH", "")])
+    name = "tests/test_torch_checkpoint.py::test_train_without_a_ckpt_dir_starts_afresh_and_cleans_up"
+    run = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", name],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout[-4000:] + run.stderr[-2000:]
+    assert "1 passed" in run.stdout
+
+
+def test_train_puts_the_inductor_cache_variable_back(tmp_path, monkeypatch):
+    """``train`` keeps torch's inductor cache out of the temporary directory
+    for its run only: the variable is set during the run unless the caller
+    set it, and is as it was after."""
+    import os
+    from repro_torch.launch import train as T
+    key = "TORCHINDUCTOR_CACHE_DIR"
+    monkeypatch.delenv(key, raising=False)
+    with T._inductor_cache(tmp_path / "a"):
+        assert os.environ[key] == str(tmp_path / "a")
+    assert key not in os.environ
+    monkeypatch.setenv(key, str(tmp_path / "mine"))
+    with T._inductor_cache(tmp_path / "a"):
+        assert os.environ[key] == str(tmp_path / "mine")
+    assert os.environ[key] == str(tmp_path / "mine")
+
+
+def test_param_shapes_imports_no_dynamo():
+    """``param_shapes`` makes its meta tensors without drawing (a draw or a
+    stack on meta imports ``torch._dynamo``), for every family, in a fresh
+    process."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([str(root / "src"), os.environ.get("PYTHONPATH", "")])}
+    code = ("import sys\n"
+            "from repro_torch.configs import ARCH_IDS, get_arch\n"
+            "from repro_torch.models.lm import param_shapes\n"
+            "for a in ARCH_IDS:\n"
+            "    param_shapes(get_arch(a))\n"
+            "print('torch._dynamo' in sys.modules)\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    assert run.stdout.strip() == "False"
+
+
 def test_train_main_reports_a_run_of_no_steps(tmp_path, monkeypatch, capsys):
     """``main`` after a run that resumed at its last step (no losses)."""
     import sys

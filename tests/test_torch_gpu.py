@@ -890,6 +890,110 @@ def test_sim_batch_run_batch_on_the_card_matches_the_scalar_engine(dev):
         assert got == simulate(w, cfg), cfg.design
 
 
+# the kernel (csrc/sim_batch.cu) against the plain tick: the CPU tests' jobs
+# (985, 1,310 and 206 ticks), a chunk of wide lanes (64 warps, 40 active
+# slots: two rounds of the warp's 32 threads) with a one-warp lane, lanes
+# stopped by the maxc watchdog, and a chunk cut by a tick cap (tmax)
+SIM_KERNEL_CHUNKS = {
+    "kmeans_ltrf_2w": [("kmeans", "LTRF", 2)],
+    "rfc_and_bl": [("btree", "RFC", 4), ("kmeans", "BL", 2)],
+    "listing1_all_designs": SIM_CHUNKS["listing1_all_designs"],
+    "wide": [("listing1", "BL", 64, {"active_slots": 40}), ("listing1", "LTRF", 64,
+                                                             {"active_slots": 40}),
+             ("listing1", "RFC", 64, {}), ("listing1", "SHRF", 1,
+                                           {"issue_width": 1, "max_inflight_prefetch": 1,
+                                            "num_collectors": 1})],
+    "watchdog": [("listing1", d, 16, {"max_cycles": m}) for d, m in
+                 zip(("BL", "RFC", "SHRF", "LTRF", "LTRF_conf", "LTRF_plus", "Ideal"),
+                     (300, 900, 0, 150, 2000, 700, 1))],
+    "tmax_wedge": SIM_CHUNKS["listing1_all_designs"],
+}
+
+
+def _sim_kernel_lanes(chunk):
+    import dataclasses
+    from repro_torch.sim import batch
+    lanes = _sim_lanes([job[:3] for job in chunk])
+    out = []
+    for ln, job in zip(lanes, chunk):
+        cfg = dataclasses.replace(ln.cfg, **(job[3] if len(job) > 3 else {}))
+        out.append(batch._Lane(ln.workload, cfg, batch._encode_plan(ln.workload, cfg),
+                               batch._occupancy(ln.workload, cfg)))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(SIM_KERNEL_CHUNKS))
+def test_sim_batch_kernel_gives_the_plain_tick_state(dev, name):
+    """One launch of the kernel leaves the plain tick's final state, every
+    plane and ``guard`` bit for bit, on the card (graph replay) and on the
+    CPU; the chunk's guard is the longest lane's ticks, watchdog and tick
+    cap included."""
+    import numpy as np
+    from repro_torch.kernels.sim_batch import sim_batch
+    from repro_torch.sim import batch
+    co, st = batch._build(_sim_kernel_lanes(SIM_KERNEL_CHUNKS[name]))
+    if name == "tmax_wedge":
+        co["tmax"] = np.asarray(120, np.int64)
+    before = sim_batch.launches
+    kernel = {k: v.cpu().numpy() for k, v in batch._run_torch(co, st, "cuda").items()}
+    assert sim_batch.launches - before == 1
+    card = {k: v.cpu().numpy() for k, v in batch._run_torch(co, st, "cuda", engine="plain").items()}
+    cpu = {k: v.numpy() for k, v in batch._run_torch(co, st, "cpu").items()}
+    assert _same_state(kernel, card)
+    assert _same_state(kernel, cpu)
+    if name == "watchdog":
+        assert kernel["budget"].sum() == 3 and not kernel["alive"].any()
+    if name == "tmax_wedge":
+        assert int(kernel["guard"]) == 121 and kernel["alive"].any()
+
+
+def test_sim_batch_kernel_twice_gives_the_same_bits(dev):
+    from repro_torch.sim import batch
+    co, st = batch._build(_sim_kernel_lanes(SIM_KERNEL_CHUNKS["wide"]))
+    runs = [{k: v.cpu().numpy() for k, v in batch._run_torch(co, st, "cuda").items()}
+            for _ in range(2)]
+    assert _same_state(*runs)
+
+
+def test_sim_batch_kernel_catches_a_planted_fault(dev):
+    """The DRAM queue's interval one cycle longer changes the kernel's state."""
+    from repro_torch.sim import batch
+    co, st = batch._build(_sim_kernel_lanes(SIM_KERNEL_CHUNKS["kmeans_ltrf_2w"]))
+    want = {k: v.cpu().numpy() for k, v in batch._run_torch(co, st, "cuda").items()}
+    co["drint"] = co["drint"] + 1.0
+    got = {k: v.cpu().numpy() for k, v in batch._run_torch(co, st, "cuda").items()}
+    assert not _same_state(got, want)
+
+
+def test_sim_batch_run_batch_on_the_card_launches_the_kernel_once_a_chunk(dev):
+    """``run_batch`` on the card: every job on the kernel, one launch a
+    chunk, no graph captured, each result the scalar engine's (watchdog
+    outcomes included)."""
+    import dataclasses
+    from repro_torch.kernels.sim_batch import sim_batch
+    from repro_torch.sim import batch, design_config, run_batch, simulate
+    from repro_torch.sim.engine import SimBudgetExceeded
+    from repro_torch.workloads import get_workload
+    jobs = [(get_workload(n), design_config(d, table2_config=7, num_warps=nw))
+            for n, d, nw in [("kmeans", "LTRF", 2), ("btree", "RFC", 2), ("kmeans", "BL", 2),
+                             ("kmeans", "LTRF_conf", 3), ("kmeans", "Ideal", 3),
+                             ("pathfinder", "SHRF", 8), ("bfs", "LTRF_plus", 6)]]
+    jobs.append((jobs[0][0], dataclasses.replace(jobs[0][1], max_cycles=200)))
+    before = sim_batch.launches
+    stats = batch.reset_run_stats()
+    got = run_batch(jobs, fallback=False)
+    assert sim_batch.launches - before == stats["launches"] > 0
+    assert stats["compiles"] == 0 and stats["compile_s"] == 0.0
+    assert batch.BLOCK_STATS["replays"] == batch.BLOCK_STATS["reruns"] == 0
+    for (w, cfg), r in zip(jobs, got):
+        if cfg.max_cycles:
+            with pytest.raises(SimBudgetExceeded) as e:
+                simulate(w, cfg)
+            assert isinstance(r, SimBudgetExceeded) and r.args == e.value.args
+        else:
+            assert r == simulate(w, cfg), cfg.design
+
+
 def test_sweep_service_batches_on_the_card(dev, tmp_path):
     """The sweep service's prefill of Listing 1's 7 designs runs them on the
     card's batch engine, each result the scalar engine's."""

@@ -188,3 +188,232 @@ def test_unsupported_config_falls_back_or_raises():
     assert port_batch.run_batch([(w, cfg)], device="cpu") == [port_batch.simulate(w, cfg)]
     with pytest.raises(ValueError):
         port_batch.run_batch([(w, cfg)], fallback=False, device="cpu")
+
+
+# ------------------------------------------ the kernel path (csrc/sim_batch.cu)
+
+from repro_torch.kernels import _build as kernel_build  # noqa: E402
+from repro_torch.kernels.sim_batch import ops as kernel_ops  # noqa: E402
+
+LANE_KINDS = {
+    "cached": [("kmeans", "LTRF", 8), ("bfs", "SHRF", 4)],
+    "rfc": [("btree", "RFC", 4)],
+    "bl_and_ideal": [("kmeans", "BL", 2), ("pathfinder", "Ideal", 6)],
+    "every_design": [("listing1", d, 16) for d in
+                     ("BL", "RFC", "SHRF", "LTRF", "LTRF_conf", "LTRF_plus", "Ideal")],
+}
+
+
+def _cpu_planes(co, st):
+    return port_batch._place(co, CPU), port_batch._place(port_batch._trash(st), CPU)
+
+
+@pytest.mark.parametrize("kind", sorted(LANE_KINDS))
+def test_kernel_args_agree_with_dims_and_planes(kind):
+    """The struct the host fills for the kernel: its widths are ``_dims``'s
+    and the planes' own, each plane's lane stride is its row's size, and
+    each pointer is its plane's."""
+    co, st = port_batch._build(_lanes(PORT, LANE_KINDS[kind]))
+    c, s = _cpu_planes(co, st)
+    dims = port_batch._dims(co, st)
+    args = kernel_ops.kernel_args(c, s, dims)
+    got = dict(zip(kernel_ops.DIMS, args.dims))
+    assert tuple(args.dims)[:len(dims)] == dims
+    assert got["K"] == st["wf"].shape[0] and got["W"] == st["wf"].shape[1]
+    assert got["A"] == st["act"].shape[1] and got["E"] == st["rc"].shape[1]
+    assert (got["PF"], got["C"], got["NCAT"]) == (st["pf"].shape[1], st["col"].shape[1],
+                                                  st["bd"].shape[1])
+    assert (got["GV"], got["MW"]) == (co["ivregs"].shape[2], co["meta"].shape[2])
+    assert got["CW"] == 2 + got["S"] + got["PS"] == s["cf"].shape[2]
+    assert got["RV1"] == got["RVW"] + 1 == s["rv"].shape[2]
+    planes = {**c, **s}
+    # every plane but the dummies whose shapes carry widths (in `dims`)
+    assert set(kernel_ops.PLANES) == set(planes) - {"slots", "mdims", "rdims", "ldims"}
+    for i, name in enumerate(kernel_ops.PLANES):
+        t = planes[name]
+        assert args.planes[i] == t.data_ptr(), name
+        assert args.lane_stride[i] == (int(np.prod(t.shape[1:])) if t.dim() else 0), name
+    bad = dict(c, seed=c["seed"].to(torch.int32))
+    with pytest.raises(ValueError, match="seed"):
+        kernel_ops.kernel_args(bad, s, dims)
+
+
+class _StubStream:
+    """A CUDA stream's stand-in: handle 0, waits on nothing."""
+    cuda_stream = 0
+
+    def wait_stream(self, other):
+        pass
+
+
+class _StubEvent:
+    """A timing CUDA event's stand-in: records nothing, reads 0 ms."""
+
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self):
+        pass
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return 0.0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """``cuda`` as the device with the planes left on the CPU, stub streams
+    and events, and a library stub that records each launch (and runs
+    nothing); the plain tick raises if it is ever built."""
+    import contextlib
+    place = port_batch._place
+    launches = []
+
+    def stub_launch(args, stream):
+        launches.append((args, stream))
+        return 0
+
+    def no_plain_tick(*a, **k):
+        raise AssertionError("the plain tick ran on the kernel path")
+
+    monkeypatch.setattr(port_batch, "_place", lambda arrays, device: place(arrays, CPU))
+    monkeypatch.setattr(port_batch, "_card_stream", lambda device: _StubStream())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _StubStream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "Event", _StubEvent)
+    monkeypatch.setattr(port_batch, "resolve_device", torch.device)
+    monkeypatch.setattr(port_batch, "_tick_fn", no_plain_tick)
+    monkeypatch.setattr(kernel_ops, "_check_card", lambda co, s: None)
+    monkeypatch.setattr(kernel_ops, "_library", lambda numbering: stub_launch)
+    return launches
+
+
+def test_run_chunks_on_the_card_launches_the_kernel_once_a_chunk(fake_card):
+    chunks = [_lanes(PORT, LANE_KINDS[k]) for k in ("cached", "rfc", "bl_and_ideal")]
+    before = kernel_ops.sim_batch.launches
+    stats = port_batch.reset_run_stats()
+    out = port_batch._run_chunks(chunks, torch.device("cuda"))
+    assert len(fake_card) == len(chunks) == len(out)
+    assert kernel_ops.sim_batch.launches - before == len(chunks)
+    assert stats["launches"] == len(chunks) and stats["compiles"] == 0
+    assert stats["compile_s"] == 0.0
+    assert port_batch.BLOCK_STATS == {"blocks": 3, "eager_blocks": 0, "replays": 0, "reruns": 0}
+    assert all(r["captures"] == 0 and r["blocks"] == 1 for _, r in out)
+    with pytest.raises(TypeError, match="one launch"):
+        port_batch._run_chunks(chunks[:1], torch.device("cuda"), block=4)
+
+
+def test_the_kernel_path_needs_the_card():
+    """``device="cpu"`` runs the plain tick; the kernel refuses it."""
+    co, st = port_batch._build(_lanes(PORT, LANE_KINDS["rfc"]))
+    with pytest.raises(ValueError, match="CUDA device"):
+        port_batch._run_torch(co, st, "cpu", engine="kernel")
+    with pytest.raises(ValueError, match="engine"):
+        port_batch._run_torch(co, st, "cpu", engine="jit")
+
+
+@pytest.mark.parametrize("fault", ["build", "launch"])
+def test_a_kernel_that_fails_raises_out_of_run_batch(fake_card, monkeypatch, fault):
+    """No fallback: a failed build or a refused launch raises, and no job
+    is finished by the plain tick or the scalar engine instead."""
+    def failed_build(name):
+        raise RuntimeError(f"kernel build failed: {name} (planted)")
+
+    if fault == "build":
+        monkeypatch.setattr(kernel_ops, "_library",
+                            lambda numbering: kernel_build.load("sim_batch"))
+        monkeypatch.setattr(kernel_build, "load", failed_build)
+    else:
+        monkeypatch.setattr(kernel_ops, "_library", lambda numbering: lambda args, stream: 700)
+    monkeypatch.setattr(port_batch, "simulate", fake_card.append)
+    w = port_workloads.get_workload("kmeans")
+    cfg = port_designs.design_config("LTRF", table2_config=7, num_warps=2)
+    with pytest.raises(RuntimeError, match="planted" if fault == "build" else "cudaError 700"):
+        port_batch.run_batch([(w, cfg)], device="cuda")
+    assert not fake_card
+
+
+# The kernel's source built for the host by a C++ compiler (one thread a
+# lane, the same code as on the card) holds its logic to the plain tick on
+# the CPU: every plane and `guard`, bit for bit.
+
+def _host_compiler():
+    import shutil
+    return shutil.which("g++") or shutil.which("c++")
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    import ctypes
+    import subprocess
+    cxx = _host_compiler()
+    if cxx is None:
+        pytest.skip("needs a C++ compiler (g++ or c++) to build the kernel's source for the host")
+    out = tmp_path_factory.mktemp("sim_batch_host") / "sim_batch_host.so"
+    src = kernel_build.CSRC / "sim_batch.cu"
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-x", "c++", str(src), "-o", str(out)], check=True)
+    lib = ctypes.CDLL(str(out))
+    lib.sim_batch_layout.restype = ctypes.c_char_p
+    lib.sim_batch_run_host.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def _host_run(lib, co, st):
+    import ctypes
+    c, s = _cpu_planes(co, st)
+    dims = port_batch._dims(co, st)
+    args = kernel_ops.kernel_args(c, s, dims)       # held: the call reads it
+    assert lib.sim_batch_run_host(ctypes.addressof(args)) == 0
+    return {k: v.numpy() for k, v in port_batch._untrash(s, dims[1], dims[12], dims[4],
+                                                          dims[3]).items()}
+
+
+def test_host_built_kernel_has_the_wrappers_layout(host_kernel):
+    assert (host_kernel.sim_batch_layout().decode()
+            == kernel_ops.layout(port_batch._KERNEL_NUMBERING))
+
+
+def _watchdog_chunk():
+    """Listing 1's designs, each with a cycle budget (0: none) that stops
+    most of them part way (SimBudgetExceeded outcomes)."""
+    budgets = dict(zip(("BL", "RFC", "SHRF", "LTRF", "LTRF_conf", "LTRF_plus", "Ideal"),
+                       (300, 900, 0, 150, 2000, 700, 1)))
+    w = _listing1(port_workloads)
+    out = []
+    for d, m in budgets.items():
+        cfg = replace(port_designs.design_config(d, table2_config=7, num_warps=16), max_cycles=m)
+        out.append(port_batch._Lane(w, cfg, port_batch._encode_plan(w, cfg),
+                                    port_batch._occupancy(w, cfg)))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(CHUNKS) + ["watchdog", "tmax_wedge"])
+def test_host_built_kernel_gives_the_plain_tick_state(host_kernel, name):
+    """Every plane and ``guard``: the CPU tests' jobs (985, 1,310 and 206
+    ticks), a chunk whose lanes hit the ``maxc`` watchdog, and one cut by a
+    tick cap (``tmax``) with lanes still alive."""
+    lanes = _watchdog_chunk() if name == "watchdog" else _lanes(
+        PORT, CHUNKS["listing1_all_designs" if name == "tmax_wedge" else name])
+    co, st = port_batch._build(lanes)
+    if name == "tmax_wedge":
+        co["tmax"] = np.asarray(120, np.int64)
+    plain = {k: v.numpy() for k, v in port_batch._run_torch(co, st, "cpu").items()}
+    got = _host_run(host_kernel, co, st)
+    _assert_same_state(got, plain)
+    if name == "watchdog":
+        assert plain["budget"].sum() == 3 and not plain["alive"].any()
+    if name == "tmax_wedge":
+        assert int(plain["guard"]) == 121 and plain["alive"].any()
+
+
+def test_host_built_kernel_catches_a_planted_fault(host_kernel):
+    """The DRAM queue's interval one cycle longer changes the kernel's state."""
+    lanes = _lanes(PORT, CHUNKS["kmeans_ltrf_2w"])
+    co, st = port_batch._build(lanes)
+    want = _host_run(host_kernel, co, st)
+    co["drint"] = co["drint"] + 1.0
+    with pytest.raises(AssertionError):
+        _assert_same_state(_host_run(host_kernel, co, st), want)
