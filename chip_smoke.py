@@ -128,8 +128,9 @@ exits non-zero; no phase's error is caught):
     (``repro_torch.serving.SimRunner(device="cuda", batch=True)``) driving the
     batch simulator on the card, whose every chunk is one launch of the
     ``sim_batch`` kernel (no CUDA graph: each call's launches must equal its
-    chunks, each chunk printed with its lanes, ticks and the kernel's µs a
-    tick), each simulated result held field by field,
+    chunks, each chunk printed with its lanes, ticks, the kernel's µs a
+    tick, the route of a lane's image in shared memory, its bytes, the CTAs
+    an SM holds and the waves), each simulated result held field by field,
     ``cycle_breakdown`` included, to the port's scalar ``engine.simulate`` (or
     ``simulate_gpu`` over it) run meanwhile on the host in worker processes:
     (a) the tracked sweep (``benchmarks/sweep_subset.py::sweep_jobs``, 14
@@ -160,7 +161,8 @@ exits non-zero; no phase's error is caught):
     the same chunks' final state from the kernel held plane by plane, bit
     for bit, to the plain PyTorch tick run on the card (``engine="plain"``,
     its blocks replayed as CUDA graphs); lanes per launch, launches, ticks,
-    the card's wall, the kernel's µs a tick, registers and spills, and the
+    the card's wall, the kernel's µs a tick, registers and spills, a lane's
+    image route and bytes, CTAs an SM and waves, and the
     plain tick's ms a tick for eager blocks and for graph replay and the
     device-busy share of a block (profiler), for that chunk and for the
     tracked sweep's widest; a planted fault (the DRAM queue's interval one
@@ -2353,12 +2355,22 @@ def sim_tick_times(lanes, blocks: int = 10) -> dict:
 
 def sim_chunk_line(lanes, state, stats) -> dict:
     """One chunk's kernel run: lanes, ticks (its longest lane's), launches,
-    the launch's time on the card and the kernel's µs a tick."""
+    the launch's time on the card and the kernel's µs a tick; its route and
+    a lane's image in shared memory, and two values derived, not measured:
+    the CTAs (lanes) an SM holds (the CUDA occupancy calculator's) and the
+    waves its CTAs would take alone on the card."""
     ticks = int(state["guard"])
     ms = stats.get("kernel_ms")
-    return {"lanes": len(lanes), "ticks": ticks, "launches": stats["blocks"],
+    line = {"lanes": len(lanes), "ticks": ticks, "launches": stats["blocks"],
             "graph_captures": stats["captures"], "kernel_ms": ms,
             "us_per_tick": None if ms is None or not ticks else 1e3 * ms / ticks}
+    route, nbytes = stats.get("route"), stats.get("image_bytes")
+    if route is not None:
+        K = sim_batch._bucket(len(lanes), 2)
+        line.update(route=route, image_bytes=nbytes,
+                    ctas_per_sm=sim_ops.ctas_per_sm(route, nbytes),
+                    waves=sim_ops.waves(route, nbytes, K))
+    return line
 
 
 def sim_kernel_tick(lanes) -> dict:
@@ -2449,19 +2461,36 @@ def sim_scalar_gpu(job) -> dict:
     return dataclasses.asdict(simulate_gpu(sim_workload(name), cfg))
 
 
+def sim_routes_since(mark: dict) -> dict:
+    """The ``sim_batch`` kernel's launches on each image route since
+    ``mark`` (an earlier ``dict(sim_ops.sim_batch.launches_by_route)``)."""
+    return {r: n - mark.get(r, 0) for r, n in sim_ops.sim_batch.launches_by_route.items()}
+
+
+def sim_routes_sum(parts) -> dict:
+    """Launches by route summed over ``parts`` (dicts route -> launches)."""
+    out = dict.fromkeys(sim_ops.ROUTES, 0)
+    for part in parts:
+        for r, n in part.items():
+            out[r] += n
+    return out
+
+
 @contextlib.contextmanager
 def engine_calls():
     """Record each lockstep run of the batch engine (``_run_chunks``, once a
     ``run_batch`` call, after its lanes are encoded) made on the thread that
     entered this: its jobs, wall seconds, chunks (launches) with their lanes
     and ticks (the longest lane's, as the reference's ``guard`` counts
-    them), and ticks summed.  Another thread's recorder may nest inside."""
+    them), the kernel's launches (and by route), and ticks summed.  Another
+    thread's recorder may nest inside."""
     calls, owner = [], threading.get_ident()
     inner = sim_batch._run_chunks
 
     def timed(lane_chunks, device, **opts):
         t0 = time.perf_counter()
         launched = sim_ops.sim_batch.launches
+        mark = dict(sim_ops.sim_batch.launches_by_route)
         out = inner(lane_chunks, device, **opts)
         if threading.get_ident() != owner:
             return out
@@ -2474,6 +2503,7 @@ def engine_calls():
         calls.append({"jobs": sum(c["lanes"] for c in chunks), "device": str(device),
                       "wall_s": time.perf_counter() - t0, "launches": len(chunks),
                       "kernel_launches": kernel_launches,
+                      "kernel_launches_by_route": sim_routes_since(mark),
                       "ticks": sum(c["ticks"] for c in chunks), "chunks": chunks})
         return out
 
@@ -2716,8 +2746,11 @@ def phase_sweep_service(dev, seed) -> dict:
                                  f"{len(confirmed)} confirmations differ from the scalar engine")
                 h["identical"] = len(confirmed) - len(bad_d)
         # the main path's launches: (a), (c) and (d)'s runs ((e) launches none)
-        out["kernel_launches"] = sum(c["kernel_launches"] for part in (
-            out["tracked"], out["whole_gpu"], *hybrid.values()) for c in part["engine_calls"])
+        main_calls = [c for part in (out["tracked"], out["whole_gpu"], *hybrid.values())
+                      for c in part["engine_calls"]]
+        out["kernel_launches"] = sum(c["kernel_launches"] for c in main_calls)
+        out["kernel_launches_by_route"] = sim_routes_sum(
+            c["kernel_launches_by_route"] for c in main_calls)
         # (f) the service's metrics
         snap = runner.metrics_snapshot()
         out["metrics"] = {k: v for k, v in snap.items()
@@ -2743,8 +2776,10 @@ def phase_sim_batch(dev, seed) -> dict:
         scalar_f = [pool.submit(sim_scalar, j) for j in narrow]
         fault_f = [pool.submit(sim_scalar, j) for j in fault_jobs]
         launched = sim_ops.sim_batch.launches
+        mark = dict(sim_ops.sim_batch.launches_by_route)
         at8 = sim_card_run(narrow, SIM_NARROW_LANES)
         main_launches = sim_ops.sim_batch.launches - launched
+        main_routes = sim_routes_since(mark)
         # the kernel's final state against the plain tick's, on the card
         versus = sim_kernel_vs_plain(narrow, SIM_NARROW_LANES)
         # a planted fault: the DRAM queue's interval one cycle longer
@@ -2777,7 +2812,7 @@ def phase_sim_batch(dev, seed) -> dict:
         del run["results"]
     widest_t, narrow_t = times["widest"], times["narrow"]
     return {
-        "kernel_launches": main_launches,
+        "kernel_launches": main_launches, "kernel_launches_by_route": main_routes,
         "kernel": {"widest": kernel_t["widest"], "narrow": kernel_t["narrow"],
                    "ptxas": ptxas_summary(log),
                    "ptxas_lines": [ln.strip() for ln in log.splitlines()
@@ -2926,10 +2961,12 @@ def phase_traced_sweep(dev, seed) -> dict:
     planted = dataclasses.replace(w, trips={loop: trips + 1})
     cfgs = [design_config(d, table2_config=7, num_warps=16) for d in SIM_DESIGNS]
     launched = sim_ops.sim_batch.launches
+    mark = dict(sim_ops.sim_batch.launches_by_route)
     t0 = time.perf_counter()
     res = sim_run_batch([(w, c) for c in cfgs], fallback=False, device="cuda")
     pins_wall = time.perf_counter() - t0
     pins_launches = sim_ops.sim_batch.launches - launched
+    pins_routes = sim_routes_since(mark)
     pins = [sim_counters(r) for r in res]
     faulty = [sim_counters(r) for r in sim_run_batch([(planted, c) for c in cfgs],
                                                      fallback=False, device="cuda")]
@@ -2945,6 +2982,8 @@ def phase_traced_sweep(dev, seed) -> dict:
                                             "designs_caught": len(caught)}}
     # the main path's launches: (b)'s runs and (c)'s, not (d)'s
     out["kernel_launches"] = sum(c["kernel_launches"] for c in calls) + pins_launches
+    out["kernel_launches_by_route"] = sim_routes_sum(
+        [*(c["kernel_launches_by_route"] for c in calls), pins_routes])
     return out
 
 
@@ -3229,10 +3268,11 @@ def phase_mesh(cfgs, dev, seed, dryrun, tracked_wall_s, card) -> dict:
     return out
 
 
-def sim_kernel_entry(sim, sim_paths) -> dict:
+def sim_kernel_entry(sim, sim_paths, sim_routes) -> dict:
     """The kernels line's entry of the batch simulator's kernel: ``sim`` is
     phase sim_batch's result, ``sim_paths`` the kernel's launches on each
-    simulator phase."""
+    simulator phase's main path, ``sim_routes`` the same launches by the
+    route of a lane's image."""
     w, n = sim["kernel"]["widest"], sim["kernel"]["narrow"]
     per_tick = 1.0 / w["ticks"]
     return {
@@ -3252,6 +3292,7 @@ def sim_kernel_entry(sim, sim_paths) -> dict:
                  "useful roofline)"),
         "narrow": {"lanes": n["lanes"], "ticks": n["ticks"], "us_per_tick": n["us_per_tick"],
                    "plain_ms": sim["at_8_lanes"]["plain_tick"]["graph_ms_per_tick"]},
+        "launches_by_route": sim_routes,
         "ptxas": sim["kernel"]["ptxas"]}
 
 
@@ -3448,13 +3489,17 @@ def main() -> int:
         # the simulator's phases, the kernel's launch count set to 0 before
         # each; each phase reports its main path's launches alone (its state
         # comparison, timing and planted-fault runs do not count)
-        sim_paths = {}
+        sim_paths, sim_routes = {}, []
         for name, fn in (("sweep_service", phase_sweep_service), ("sim_batch", phase_sim_batch),
                          ("traced_sweep", phase_traced_sweep)):
             sim_ops.sim_batch.launches = 0
             run(name, fn, dev, args.seed)
             sim_paths[name] = results[name]["kernel_launches"]
+            sim_routes.append(results[name]["kernel_launches_by_route"])
             check(sim_paths[name] > 0, f"{name} never launched the sim_batch kernel")
+        sim_routes = sim_routes_sum(sim_routes)
+        check(sum(sim_routes.values()) == sum(sim_paths.values()),
+              f"sim_batch launches by route {sim_routes}, by path {sim_paths}")
         run("mesh", phase_mesh, cfgs, dev, args.seed, dryrun,
             results["sweep_service"]["tracked"]["service_wall_s"],
             results["device"]["nvidia_smi"])
@@ -3467,7 +3512,7 @@ def main() -> int:
                   f"{name} launched no backward kernel: {got}")
         line = kernels_line(cfgs, results["kernel_checks"], paths, routes,
                             results["train_tinyllama"], results["train_grads"], bwd_paths,
-                            sim_kernel_entry(results["sim_batch"], sim_paths))
+                            sim_kernel_entry(results["sim_batch"], sim_paths, sim_routes))
         for k in line["kernels"]:
             check(k["launches"] > 0, f"{k['name']} never launched on the main path")
             if k["name"] in BWD_SOURCES:

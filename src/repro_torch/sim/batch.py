@@ -1238,7 +1238,8 @@ class _KernelChunk:
     them, the kernel runs every lane to completion, and the state reads as
     `_Chunk`'s does.  No block, no activation bound, no snapshot, no graph;
     ``stats`` keeps `_Chunk`'s keys (one block, nothing captured) and adds
-    ``kernel_ms``, the launch's time on the card (CUDA events)."""
+    ``kernel_ms``, the launch's time on the card (CUDA events), and the
+    launch's ``route`` and ``image_bytes`` (a lane's image in shared memory)."""
 
     def __init__(self, co: dict, st: dict, device: torch.device):
         if device.type != "cuda":
@@ -1252,7 +1253,8 @@ class _KernelChunk:
         self.events = None
         self.done = False
         self.stats = {"blocks": 0, "eager_blocks": 0, "replays": 0, "reruns": 0,
-                      "captures": 0, "capture_s": 0.0, "kernel_ms": None}
+                      "captures": 0, "capture_s": 0.0, "kernel_ms": None, "route": None,
+                      "image_bytes": None}
 
     def launch(self) -> None:
         if self.done:
@@ -1262,7 +1264,8 @@ class _KernelChunk:
         self.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         with torch.cuda.stream(self.stream):
             self.events[0].record()
-            sim_batch(self.co, self.s, self.dims, self.stream.cuda_stream, _KERNEL_NUMBERING)
+            self.stats.update(sim_batch(self.co, self.s, self.dims, self.stream.cuda_stream,
+                                        _KERNEL_NUMBERING))
             self.events[1].record()
         self.stats["blocks"] += 1
         self.done = True

@@ -7,8 +7,20 @@ forward (``attention_ref``), relative L2 <= 1e-5 per gradient (fp32 sum
 order only), and ``jax.vjp`` of the JAX package's ``attention_ref``,
 relative L2 <= 1e-4 per leaf (two frameworks' fp32 sums).  Planted faults
 (a non-causal backward, the GQA group sum dropped, D dropped) must fail.
+
+The plain backward's D = rowsum(dO o O) and dP = dO V^T cancel in
+dS = P o (dP - D), so a one-ulp change in a product's rounding moves its
+relative L2 to autograd by ~50x.  In a long-lived test worker that had run
+other port files (tests/test_torch_sweep.py before it, on one worker, in one
+of ~10 runs), the causal single-group case read 1.0e-5 to 1.3e-5 against
+its 2.1e-7 in a fresh process: some process state the run leaves behind
+changes a product's rounding.  The autograd comparison therefore runs in a
+fresh spawned process (the ``fresh`` fixture), the same fp32 computation
+on the same inputs, independent of whatever ran in the worker before.
 """
+import concurrent.futures
 import math
+import multiprocessing
 
 import numpy as np
 import pytest
@@ -72,13 +84,28 @@ def _plain(q, k, v, do, causal, **fault):
 CASES = [(2, 4, 4, 40, 16), (2, 4, 2, 40, 16), (1, 8, 2, 33, 32), (2, 4, 1, 37, 16)]
 
 
+@pytest.fixture(scope="module")
+def fresh():
+    """One spawned process for the module's autograd comparisons: a fresh
+    interpreter, with none of the test worker's state."""
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        yield pool
+
+
+def _plain_and_autograd(q, k, v, do, causal):
+    """The plain backward and autograd's gradients (numpy), run in ``fresh``."""
+    return ([g.numpy() for g in _plain(q, k, v, do, causal)],
+            [g.numpy() for g in _autograd(q, k, v, do, causal)])
+
+
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("shape", CASES, ids=["group1", "group2", "group4", "mqa_ragged"])
-def test_plain_backward_matches_autograd_and_jax(shape, causal):
+def test_plain_backward_matches_autograd_and_jax(shape, causal, fresh):
     q, k, v, do = _case(*shape, seed=sum(shape))
-    got = _plain(q, k, v, do, causal)
-    assert [tuple(g.shape) for g in got] == [a.shape for a in (q, k, v)]
-    for g, w in zip(got, _autograd(q, k, v, do, causal)):
+    got, want = fresh.submit(_plain_and_autograd, q, k, v, do, causal).result()
+    assert [g.shape for g in got] == [a.shape for a in (q, k, v)]
+    for g, w in zip(got, want):
         assert rel_l2(g, w) <= AUTOGRAD_REL_L2
     for g, w in zip(got, _jax_vjp(q, k, v, do, causal)):
         assert rel_l2(g, w) <= JAX_REL_L2

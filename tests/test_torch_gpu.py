@@ -907,7 +907,13 @@ SIM_KERNEL_CHUNKS = {
                  zip(("BL", "RFC", "SHRF", "LTRF", "LTRF_conf", "LTRF_plus", "Ideal"),
                      (300, 900, 0, 150, 2000, 700, 1))],
     "tmax_wedge": SIM_CHUNKS["listing1_all_designs"],
+    # an 8-entry RFC table that fills and evicts
+    "rfc_evict": [("listing1", "RFC", 16, {"rfc_size_kb": 1}),
+                  ("listing1", "RFC", 4, {"rfc_size_kb": 1})],
 }
+# a 256-entry table, half past the kernel's registers (its state set below)
+SIM_WIDE_RFC = [("listing1", "RFC", 16, {"rfc_size_kb": 32}),
+                ("listing1", "RFC", 4, {"rfc_size_kb": 32})]
 
 
 def _sim_kernel_lanes(chunk):
@@ -945,6 +951,63 @@ def test_sim_batch_kernel_gives_the_plain_tick_state(dev, name):
         assert kernel["budget"].sum() == 3 and not kernel["alive"].any()
     if name == "tmax_wedge":
         assert int(kernel["guard"]) == 121 and kernel["alive"].any()
+
+
+def _sim_kernel_route(co, st):
+    """One launch of the kernel on the route ``plan`` takes: the final state
+    and the plan."""
+    from repro_torch.kernels.sim_batch import ops
+    from repro_torch.sim import batch
+    cuda = torch.device("cuda")
+    c, s = batch._place(co, cuda), batch._place(batch._trash(st), cuda)
+    dims = batch._dims(co, st)
+    plan = ops.sim_batch(c, s, dims, torch.cuda.current_stream().cuda_stream,
+                         batch._KERNEL_NUMBERING)
+    torch.cuda.synchronize()
+    out = batch._untrash(s, dims[1], dims[12], dims[4], dims[3])
+    return {k: v.cpu().numpy() for k, v in out.items()}, plan
+
+
+@pytest.mark.parametrize("route", ["shared", "global"])
+def test_sim_batch_kernel_routes_give_the_plain_tick_state(dev, monkeypatch, route):
+    """Each route of the lane's image in shared memory (``rv`` and the
+    tables in it, or left in their global planes, taken here by cutting the
+    shared memory ``plan`` may give to the global route's image) gives the
+    plain tick's state, on wide lanes, RFC lanes that evict, a full table of
+    tied stamps (the first entry is the victim) and a 256-entry table whose
+    hits and evictions land past the kernel's registers; each launch
+    counted on its route."""
+    import numpy as np
+    from repro_torch.kernels.sim_batch import ops, sim_batch
+    from repro_torch.sim import batch
+    for name in ("wide", "rfc_evict", "rfc_tied", "rfc_wide"):
+        co, st = batch._build(_sim_kernel_lanes(
+            SIM_WIDE_RFC if name == "rfc_wide"
+            else SIM_KERNEL_CHUNKS["rfc_evict" if name == "rfc_tied" else name]))
+        if name == "rfc_tied":
+            E = st["rc"].shape[1]
+            st["rc"][:, :, 0] = 10 ** 9 + np.arange(E)
+            st["rc"][:, :, 1] = 0
+            st["rcnt"][:] = co["ecap"]
+        if name == "rfc_wide":
+            # full: entries 0-127 keys no operand has (stamp 100), 128-255
+            # the even registers' keys and more unused ones (stamps 0-127)
+            R = co["rdims"].shape[0] - 1
+            keys = [w * (R + 1) + r for w in range(16) for r in range(0, 8, 2)]
+            st["rc"][:, :128, 0] = 10 ** 9 + np.arange(128)
+            st["rc"][:, :128, 1] = 100
+            st["rc"][:, 128:, 0] = keys + [2 * 10 ** 9 + e for e in range(128 - len(keys))]
+            st["rc"][:, 128:, 1] = np.arange(128)
+            st["rcnt"][:] = co["ecap"]
+        width = ops.widths(co, batch._trash(st), batch._dims(co, st))
+        if route == "global":
+            monkeypatch.setattr(ops, "SHARED_BYTES", ops.image_bytes(width, "global"))
+        before = sim_batch.launches_by_route[route]
+        got, plan = _sim_kernel_route(co, st)
+        assert plan["route"] == route and sim_batch.launches_by_route[route] == before + 1
+        assert plan["image_bytes"] == ops.image_bytes(width, route)
+        cpu = {k: v.numpy() for k, v in batch._run_torch(co, st, "cpu").items()}
+        assert _same_state(got, cpu), name
 
 
 def test_sim_batch_kernel_twice_gives_the_same_bits(dev):

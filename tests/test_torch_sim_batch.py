@@ -390,13 +390,35 @@ def _watchdog_chunk():
     return out
 
 
-@pytest.mark.parametrize("name", sorted(CHUNKS) + ["watchdog", "tmax_wedge"])
+def _rfc_evict_chunk():
+    """Listing 1's RFC lanes at 16 and 4 warps with an 8-entry table
+    (``rfc_size_kb=1``): the table fills, and the 16-warp lane evicts ~280
+    times (206 ticks)."""
+    w = _listing1(port_workloads)
+    out = []
+    for nw in (16, 4):
+        cfg = replace(port_designs.design_config("RFC", table2_config=7, num_warps=nw),
+                      rfc_size_kb=1)
+        out.append(port_batch._Lane(w, cfg, port_batch._encode_plan(w, cfg),
+                                    port_batch._occupancy(w, cfg)))
+    return out
+
+
+def _chunk_lanes_named(name):
+    if name == "watchdog":
+        return _watchdog_chunk()
+    if name == "rfc_evict":
+        return _rfc_evict_chunk()
+    return _lanes(PORT, CHUNKS["listing1_all_designs" if name == "tmax_wedge" else name])
+
+
+@pytest.mark.parametrize("name", sorted(CHUNKS) + ["watchdog", "tmax_wedge", "rfc_evict"])
 def test_host_built_kernel_gives_the_plain_tick_state(host_kernel, name):
     """Every plane and ``guard``: the CPU tests' jobs (985, 1,310 and 206
-    ticks), a chunk whose lanes hit the ``maxc`` watchdog, and one cut by a
-    tick cap (``tmax``) with lanes still alive."""
-    lanes = _watchdog_chunk() if name == "watchdog" else _lanes(
-        PORT, CHUNKS["listing1_all_designs" if name == "tmax_wedge" else name])
+    ticks), a chunk whose lanes hit the ``maxc`` watchdog, one cut by a
+    tick cap (``tmax``) with lanes still alive, and RFC lanes whose table
+    fills and evicts."""
+    lanes = _chunk_lanes_named(name)
     co, st = port_batch._build(lanes)
     if name == "tmax_wedge":
         co["tmax"] = np.asarray(120, np.int64)
@@ -407,6 +429,214 @@ def test_host_built_kernel_gives_the_plain_tick_state(host_kernel, name):
         assert plain["budget"].sum() == 3 and not plain["alive"].any()
     if name == "tmax_wedge":
         assert int(plain["guard"]) == 121 and plain["alive"].any()
+    if name == "rfc_evict":
+        E = plain["rc"].shape[1]
+        assert (plain["rcnt"] == E).all() and plain["cm"][0] > 10 * E and plain["ch"].all()
+
+
+def _widths(co, st):
+    c, s = _cpu_planes(co, st)
+    return kernel_ops.widths(c, s, port_batch._dims(co, st))
+
+
+def _fit_route(monkeypatch, co, st, route):
+    """Shared memory cut to the image ``route`` takes, if it is not the
+    first that fits: ``plan`` then takes ``route`` from the widths."""
+    width = _widths(co, st)
+    if kernel_ops.plan(width)[0] != route:
+        monkeypatch.setattr(kernel_ops, "SHARED_BYTES", kernel_ops.image_bytes(width, route))
+    assert kernel_ops.plan(width)[0] == route
+
+
+@pytest.mark.parametrize("route", kernel_ops.ROUTES)
+@pytest.mark.parametrize("name", ["listing1_all_designs", "rfc_evict"])
+def test_host_built_kernel_routes_give_the_plain_tick_state(host_kernel, monkeypatch, name,
+                                                            route):
+    """Each route of the image (``rv`` and the tables in it, or left in
+    their global planes, where shared memory holds less than the first)
+    gives the plain tick's state."""
+    co, st = port_batch._build(_chunk_lanes_named(name))
+    _fit_route(monkeypatch, co, st, route)
+    plain = {k: v.numpy() for k, v in port_batch._run_torch(co, st, "cpu").items()}
+    _assert_same_state(_host_run(host_kernel, co, st), plain)
+
+
+def _tied_rfc_state():
+    """``_rfc_evict_chunk``'s lanes started with a full table of keys no
+    operand has, every stamp 0: the first insert's victim is a tie."""
+    co, st = port_batch._build(_rfc_evict_chunk())
+    E = st["rc"].shape[1]
+    st["rc"][:, :, 0] = 10 ** 9 + np.arange(E)
+    st["rc"][:, :, 1] = 0
+    st["rcnt"][:] = co["ecap"]
+    assert (co["ecap"] == E).all()
+    return co, st
+
+
+def _wide_rfc_state():
+    """Listing 1's RFC lanes with a 256-entry table (``rfc_size_kb=32``),
+    full from the start: entries 0-127 (the kernel's registers) hold keys no
+    operand has, stamped 100; entries 128-255 (its shared memory), stamped
+    0-127, hold the keys of the lanes' even registers and then more keys no
+    operand has, so hits (even registers) and evictions (odd ones) both land
+    past the registers."""
+    w = _listing1(port_workloads)
+    lanes = []
+    for nw in (16, 4):
+        cfg = replace(port_designs.design_config("RFC", table2_config=7, num_warps=nw),
+                      rfc_size_kb=32)
+        lanes.append(port_batch._Lane(w, cfg, port_batch._encode_plan(w, cfg),
+                                      port_batch._occupancy(w, cfg)))
+    co, st = port_batch._build(lanes)
+    E, R = st["rc"].shape[1], co["rdims"].shape[0] - 1
+    assert E == 256
+    st["rc"][:, :128, 0] = 10 ** 9 + np.arange(128)
+    st["rc"][:, :128, 1] = 100
+    keys = [wid * (R + 1) + r for wid in range(16) for r in range(0, 8, 2)]
+    st["rc"][:, 128:, 0] = keys + [2 * 10 ** 9 + e for e in range(128 - len(keys))]
+    st["rc"][:, 128:, 1] = np.arange(128)
+    st["rcnt"][:] = co["ecap"]
+    return co, st
+
+
+def test_host_built_kernel_holds_a_table_past_its_registers(host_kernel):
+    """A 256-entry RFC table, half of it in the kernel's shared memory:
+    the plain tick's state."""
+    co, st = _wide_rfc_state()
+    plain = {k: v.numpy() for k, v in port_batch._run_torch(co, st, "cpu").items()}
+    _assert_same_state(_host_run(host_kernel, co, st), plain)
+    assert plain["ch"].all() and (plain["rc"][:, 128:, 0] != st["rc"][:, 128:, 0]).any()
+
+
+def _host_library(src_text, out):
+    import ctypes
+    import subprocess
+    src = out.with_suffix(".cu")
+    src.write_text(src_text)
+    subprocess.run([_host_compiler(), "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-x", "c++", str(src), "-o", str(out)], check=True)
+    lib = ctypes.CDLL(str(out))
+    lib.sim_batch_run_host.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+# the LRU victim's tie rule, and the planted fault that takes the last index
+VICTIM_FIRST = "if (L.rs[u] < oldest) {"
+VICTIM_LAST = "if (L.rs[u] <= oldest) {"
+
+
+def test_host_built_kernel_takes_the_first_lru_victim_on_ties(host_kernel, tmp_path):
+    """A full table of tied stamps: the kernel evicts the first entry, as
+    the plain tick's argmin does; a planted fault that evicts the last
+    entry on ties changes the state."""
+    co, st = _tied_rfc_state()
+    plain = {k: v.numpy() for k, v in port_batch._run_torch(co, st, "cpu").items()}
+    _assert_same_state(_host_run(host_kernel, co, st), plain)
+    text = (kernel_build.CSRC / "sim_batch.cu").read_text()
+    assert text.count(VICTIM_FIRST) == 1
+    planted = _host_library(text.replace(VICTIM_FIRST, VICTIM_LAST), tmp_path / "planted.so")
+    with pytest.raises(AssertionError):
+        _assert_same_state(_host_run(planted, co, st), plain)
+
+
+def _tracked_sweep_chunks(monkeypatch):
+    """The tracked sweep's chunks on the card: ``chip_smoke.sim_sweep_jobs``
+    (the default suite's 14 workloads x the §6 baseline and the 7 designs
+    at Table-2 #6 and #7), cut as ``run_batch`` cuts them (256 lanes a chunk
+    at most)."""
+    import importlib.util
+    from pathlib import Path
+    # chip_smoke sets this variable for the card, unless it is set; the
+    # test's own value is put back after it
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    lanes = []
+    for name, cfg in chip_smoke.sim_sweep_jobs():
+        w = chip_smoke.sim_workload(name)
+        lanes.append(port_batch._Lane(w, cfg, port_batch._encode_plan(w, cfg),
+                                      port_batch._occupancy(w, cfg)))
+    return [c for c, _ in port_batch._chunk_lanes(lanes, list(range(len(lanes))),
+                                                   port_batch._SUB_LANES["cuda"])]
+
+
+def test_image_size_is_the_kernels_at_the_sweeps_widths(host_kernel, monkeypatch):
+    """At the tracked sweep's widths: the host's image reckoning equals the
+    kernel's (``sim_batch_image_bytes``) on every route, each section is its
+    plane's lane row (``rv`` as float64 times and byte flags, without the
+    trash slots; an RFC chunk's key index one int32 a key), the whole image
+    fits two CTAs an SM (route ``shared``), and the kernel refuses a struct
+    whose image size is not its own."""
+    import ctypes
+    host_kernel.sim_batch_image_bytes.restype = ctypes.c_longlong
+    host_kernel.sim_batch_image_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    chunks = _tracked_sweep_chunks(monkeypatch)
+    assert sorted(len(c) for c in chunks) == [2, 28, 54, 112]
+    for lanes in chunks:
+        co, st = port_batch._build(lanes)
+        c, s = _cpu_planes(co, st)
+        dims = port_batch._dims(co, st)
+        width = kernel_ops.widths(c, s, dims)
+        row = {k: v[0].nbytes for k, v in {**co, **st}.items() if np.ndim(v)}
+        args = kernel_ops.kernel_args(c, s, dims)
+        assert args.route == 0 and args.image_bytes == kernel_ops.image_bytes(width, "shared")
+        for i, route in enumerate(kernel_ops.ROUTES):
+            assert (host_kernel.sim_batch_image_bytes(ctypes.addressof(args), i)
+                    == kernel_ops.image_bytes(width, route))
+            sec = kernel_ops.image_sections(width, route)
+            for name in ("wf", "cf", "pf", "col", "bd", "act", "res"):
+                assert sec[name] == row[name], name
+            assert sec["rc_keys"] == sec["rc_stamps"] == row["rc"] // 2
+            if route == "shared":
+                assert sec["rv_times"] == row["rv"] // 2 and sec["rv_flags"] == row["rv"] // 16
+                assert (sec["meta"], sec["ivt"], sec["ivregs"]) == (row["meta"], row["ivt"],
+                                                                   row["ivregs"])
+            else:
+                assert not {"rv_times", "rv_flags", "meta", "ivt", "ivregs"} & set(sec)
+        keys = width["W"] * (width["R"] + 1) if width["E"] > 1 else 0   # the RFC key index
+        assert kernel_ops.image_sections(width, "shared")["rc_index"] == 4 * keys
+        route, nbytes = kernel_ops.plan(width)
+        assert route == "shared" and 60_000 < nbytes <= kernel_ops.SHARED_BYTES // 2
+    args = kernel_ops.kernel_args(c, s, dims)
+    args.image_bytes += 16
+    assert host_kernel.sim_batch_run_host(ctypes.addressof(args)) == 1
+
+
+def test_a_width_too_large_takes_its_named_route_or_raises():
+    """Wider than the sweeps: 4,096 pcs, or 512 registers, leave ``rv`` and
+    the tables in global memory; warp rows that fit no route raise."""
+    co, st = port_batch._build(_lanes(PORT, LANE_KINDS["every_design"]))
+    c, s = _cpu_planes(co, st)
+    base = kernel_ops.widths(c, s, port_batch._dims(co, st))
+    assert base["E"] > 1 and kernel_ops.plan(base)[0] == "shared"
+    long_program = dict(base, W=64, P=4096)
+    assert kernel_ops.image_bytes(long_program, "shared") > kernel_ops.SHARED_BYTES
+    assert kernel_ops.plan(long_program) == (
+        "global", kernel_ops.image_bytes(long_program, "global"))
+    rvw = 512 + 1 + base["PRS"] + 1
+    many_registers = dict(base, W=64, R=512, RVW=rvw, RV1=rvw + 1)
+    assert kernel_ops.plan(many_registers)[0] == "global"
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel_ops.plan(dict(base, W=64, NWF=600))
+
+
+def test_blocks_take_the_longest_lane_first(host_kernel):
+    """``_chunk_lanes`` sorts a chunk's lanes shortest first; the kernel's
+    blocks take them from the last, so block 0 onwards run the padding
+    lanes (dead, they return at once) and then the lanes longest first."""
+    lanes = _lanes(PORT, [(n, "LTRF", 8) for n in port_workloads.workload_names()])
+    parts = list(port_batch._chunk_lanes(lanes, list(range(len(lanes))), 256))
+    assert len(parts) == 1 and len(parts[0][0]) == len(lanes)
+    part = parts[0][0]
+    K = port_batch._bucket(len(part), 2)
+    order = [host_kernel.sim_batch_lane_of_block(K, b) for b in range(K)]
+    assert sorted(order) == list(range(K))
+    pad = K - len(part)
+    assert pad > 0 and all(k >= len(part) for k in order[:pad])
+    hints = [port_batch._length_hint(part[k]) for k in order[pad:]]
+    assert hints == sorted(hints, reverse=True) and hints[0] > hints[-1]
 
 
 def test_host_built_kernel_catches_a_planted_fault(host_kernel):
