@@ -13,14 +13,18 @@ exits non-zero; no phase's error is caught):
    ``src/repro_torch/csrc`` (nvcc, in parallel) into ``build/kernels/``,
    started here and each finished at its first use, so the compiles overlap
    the first kernel checks; ``build_logs``, after the checks, records each
-   kernel's registers and spills.
+   kernel's registers and spills (and fails if flash's bf16 kernels spill).
 3. kernel_checks -- each kernel against its plain PyTorch version on the
    card, at the main paths' shapes (flash at tinyllama-1.1b's and
    zamba2-1.2b's): error, the per-CTA plan, and the median time of the
    kernel, the plain version and one PyTorch library call for the same
    function where there is one (``library_ms``; the port never calls it),
    beside its bound.  Planted faults show what the flash and ssd limits
-   catch.  Each matmul check also records the decode route's K split (and
+   catch.  Each flash check also holds the V pre-pass alone to its plain
+   version, bit for bit, and times it; at llava-next-34b's shape one KV
+   head's V is scaled by 2^20 and another's by 2^-20, each query head held
+   to the flash limits alone (atol times its V's scale), and the output
+   with each head's 2^e left off must fail them.  Each matmul check also records the decode route's K split (and
    cluster size) and requires two launches to give the same bits; each ssd check also gives
    ``bound_tc_ms``, its work as the kernel does it (3 bf16 products each).
    The backward kernels: flash's at tinyllama-1.1b's train shape and at
@@ -263,7 +267,7 @@ from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_bwd_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, v_to_f16_ref  # noqa: E402
 from repro_torch.kernels.ltrf_matmul import (  # noqa: E402
     ltrf_matmul, matmul_plan, matmul_ref, split_k,
 )
@@ -324,17 +328,24 @@ BWD_SOURCES = {"flash_attention": "flash_attention_bwd", "ssd_scan": "ssd_scan_b
 # tolerances.  ltrf_matmul vs its plain version: the _tol table of the kernel
 # tests (its outputs here are about N(0, 1)).  flash_attention vs its plain
 # version: the bf16 kernel computes S = Q K^T in fp32 (products of bf16
-# values are exact, so only the sum order differs), rounds P to bf16 hi + lo
-# parts (~16 bits; a single bf16 P, as FA2/FA3 round it, moves single outputs
-# by up to ~2e-3 relative: emulated on the CPU at these shapes it reads a
-# relative L2 of 2e-3 but up to 2x the elementwise limit) and accumulates
-# P V in fp32; the plain version computes in fp32.  Both round once to bf16,
+# values are exact, so only the sum order differs), rounds P to fp16 (11
+# bits) against V scaled to fp16 by a power of two per KV head, exact in
+# fp16's normal range, and scales each row back by 2^e -- or, in training's
+# forward (FlashAttentionFn), splits P into bf16 hi + lo (~16 bits) against
+# the bf16 V -- and accumulates P V in fp32 (a single bf16 P, as
+# FA2/FA3 round it, moves single outputs by up to ~2e-3 relative: emulated
+# on the CPU at these shapes, experiments/numerics/flash_p_emulation.py, it
+# reads a relative L2 of 2e-3 but 1.46-1.85x the elementwise limit; fp16 P
+# reads 0.65-0.71 of it, the split 0.36-0.55); the plain version computes
+# in fp32.  Both round once to bf16,
 # so they differ by about one bf16 ulp (< 8e-3 of the value) where the two
 # fp32 values straddle a rounding point.  Its outputs average hundreds of
 # keys and are ~0.05 in size, so the matmul's atol of 8e-2 would pass a
 # dropped KV tile.  The flash limits are elementwise (rtol, atol) and a
 # relative L2 over the whole output; a planted fault (one KV tile zeroed) must
-# fail them.  A full-width bf16 model, kernel path vs plain path: relative L2
+# fail them.  Where V's KV heads are scaled (the scaled-V check), each query
+# head is held to them alone, its atol times its V's scale; leaving a head's
+# 2^e off must fail.  A full-width bf16 model, kernel path vs plain path: relative L2
 # of the logits and relative loss difference (bf16 rounds at ~4e-3 and the two
 # paths round at different points in each of 22 layers).  On an H100 sound
 # runs read a logits relative L2 of 0.018-0.021; the two planted attention
@@ -578,7 +589,7 @@ def ptxas_summary(log: str) -> dict:
         if entry:
             n = int(entry.group(1))
             name, rest = entry.group(2)[:n], entry.group(2)[n:]
-            key = f"{name}<{','.join(re.findall(r'Li(\d+)', rest.split('Ev')[0]))}>"
+            key = f"{name}<{','.join(re.findall(r'L[ib](\d+)', rest.split('Ev')[0]))}>"
         elif key and "spill stores" in ln:
             spills = ln.split(",", 1)[1].strip()
         elif key and "Used" in ln and "registers" in ln:
@@ -599,10 +610,18 @@ def phase_build() -> dict:
 
 
 def phase_build_logs() -> dict:
-    """The compiles' ``-Xptxas -v`` summaries, once all are done."""
+    """The compiles' ``-Xptxas -v`` summaries, once all are done; fails if
+    the bf16 flash forward (the V pre-pass or any head dim's attention
+    kernel, in either form of P) spills."""
     _build.build(BUILT)
-    return {"ptxas": {name: ptxas_summary((_build.BUILD_DIR / f"{name}.log").read_text())
-                      for name in BUILT}}
+    out = {"ptxas": {name: ptxas_summary((_build.BUILD_DIR / f"{name}.log").read_text())
+                     for name in BUILT}}
+    flash = {k: v for k, v in out["ptxas"]["flash_attention"].items()
+             if k.startswith(("flash_attention_wgmma", "flash_v_to_f16"))}
+    check(len(flash) == 2 * len(flash_ops.HEAD_DIMS) + 1
+          and all("0 bytes spill stores" in v for v in flash.values()),
+          f"flash_attention's bf16 kernels spill (or are missing): {flash}")
+    return out
 
 
 def check_matmuls(cfgs, dev, gen) -> list:
@@ -668,10 +687,12 @@ def check_flash(cfg, hybrid, others, dev, gen) -> list:
         k = torch.randn(B, KV, S, d, device=dev, generator=gen).to(dt)
         v = torch.randn(B, KV, S, d, device=dev, generator=gen).to(dt)
         got = flash_attention(q, k, v)
+        split = flash_ops._attend(q, k, v, True, False, split_p=True)[0]   # training's form
         torch.cuda.synchronize()
         want = attention_ref(q, k, v)
         rec = {"arch": arch, "B": B, "H": H, "KV": KV, "S": S, "d": d, "dtype": "bfloat16",
-               **compare_flash(got, want)}
+               **compare_flash(got, want), "split_p": compare_flash(split, want)}
+        del split
         planted = compare_flash(attention_ref(q, *zero_kv_tile(k, v, 2)), want)
         rec["planted_fault"] = planted
         check(not planted["within_tol"], f"flash check passes a zeroed KV tile: {planted}")
@@ -682,10 +703,69 @@ def check_flash(cfg, hybrid, others, dev, gen) -> list:
         pairs = B * H * S * (S + 1) / 2          # causal (q, k) pairs this run needs
         rec["bound_ms"], rec["bound_by"] = bound(
             (2 * q.numel() + k.numel() + v.numel()) * q.element_size(), 4 * d * pairs, dt)
+        rec["prepass_ms"] = prepass_ms(q, k, v)
         emit({"check": "flash_attention", **rec})
         check(rec["within_tol"], f"flash_attention {rec} disagrees with plain")
+        check(rec["split_p"]["within_tol"],
+              f"flash_attention's split-P forward {rec} disagrees with plain")
         res.append(rec)
     return res
+
+
+def prepass_ms(q, k, v, calls: int = 5):
+    """The V pre-pass's device ms a bf16 call (no LSE), from the profiler's
+    spans of ``calls`` calls (None if it saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    us = [t for name, t in device_spans(prof)[0].items() if "flash_v_to_f16" in name]
+    return sum(us) / calls / 1e3 if us else None
+
+
+def per_head_flash(got, want, head_scales) -> dict:
+    """Each query head against the flash limits alone, its atol times its
+    V's scale: the worst head's excess over the elementwise limit and its
+    relative L2."""
+    got, want = got.float(), want.float()
+    excess, l2 = [], []
+    for h, sc in enumerate(head_scales):
+        g, w = got[:, h], want[:, h]
+        excess.append(float(((g - w).abs() / (FLASH_TOL["atol"] * sc
+                                              + FLASH_TOL["rtol"] * w.abs())).max()))
+        l2.append(rel_l2(g, w))
+    return {"max_excess": max(excess), "max_rel_l2": max(l2),
+            "within_tol": max(excess) <= 1.0 and max(l2) <= FLASH_REL_L2}
+
+
+def check_flash_scaled_v(cfg, dev, gen) -> dict:
+    """``cfg``'s (llava's) head dim and heads, with KV head 0's V times 2^20
+    and head 1's times 2^-20: the pre-pass scales each to fp16 by a power of
+    two of its own, and each query head must stay within the flash limits
+    alone (atol times its V's scale).  Planted fault: the kernel's output
+    with each head's 2^e left off (divided out again), which must fail."""
+    B, H, KV, S, d = 2, cfg.n_heads, cfg.n_kv_heads, 1024, cfg.hd
+    q, k, v = (torch.randn(B, n, S, d, device=dev, generator=gen) for n in (H, KV, KV))
+    scales = torch.ones(KV, device=dev)
+    scales[0], scales[1] = 2.0 ** 20, 2.0 ** -20
+    q, k, v = q.bfloat16(), k.bfloat16(), (v * scales[None, :, None, None]).bfloat16()
+    head_scales = scales.repeat_interleave(H // KV).tolist()
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v)
+    _, e = v_to_f16_ref(v.cpu())
+    off = torch.exp2(-e.float()).repeat_interleave(H // KV, 1)[..., None, None].to(dev)
+    rec = {"arch": cfg.name, "B": B, "H": H, "KV": KV, "S": S, "d": d,
+           "v_scales": [2.0 ** 20, 2.0 ** -20, 1.0], "exponents": e[0, :3].tolist(),
+           **per_head_flash(got, want, head_scales),
+           "planted_fault": per_head_flash(got.float() * off, want, head_scales)}
+    emit({"check": "flash_attention_scaled_v", **rec})
+    check(rec["within_tol"], f"flash_attention with scaled V heads disagrees with plain: {rec}")
+    check(not rec["planted_fault"]["within_tol"],
+          f"flash scaled-V check passes the output with 2^e left off: {rec}")
+    return rec
 
 
 def ssd_inputs(B, S, H, P, N, dev, gen):
@@ -731,11 +811,12 @@ def check_ssd(dev, gen) -> list:
 
 
 def flash_bwd_inputs(B, H, KV, S, d, causal, dtype, dev, gen):
-    """q, k, v, the kernel forward's O and LSE, and dO."""
+    """q, k, v, the kernel forward's O and LSE (as ``FlashAttentionFn``
+    runs it), and dO."""
     q = torch.randn(B, H, S, d, device=dev, generator=gen).to(dtype)
     k, v = (torch.randn(B, KV, S, d, device=dev, generator=gen).to(dtype) for _ in range(2))
     do = torch.randn(B, H, S, d, device=dev, generator=gen).to(dtype)
-    return (q, k, v, *flash_ops._attend(q, k, v, causal, with_lse=True), do)
+    return (q, k, v, *flash_ops._attend(q, k, v, causal, with_lse=True, split_p=True), do)
 
 
 def sdpa_grads(q, k, v, do, causal):
@@ -963,6 +1044,7 @@ def phase_kernel_checks(cfgs, dev) -> dict:
     gen = torch.Generator(dev).manual_seed(123)
     return {"ltrf_matmul": check_matmuls(cfgs, dev, gen),
             "flash_attention": check_flash(cfgs[0], cfgs[2], cfgs[3:], dev, gen),
+            "flash_attention_scaled_v": check_flash_scaled_v(cfgs[5], dev, gen),
             "ssd_scan": check_ssd(dev, gen),
             "flash_attention_bwd": check_flash_bwd(cfgs[0], dev, gen),
             "ssd_scan_bwd": check_ssd_bwd(dev, gen)}
@@ -1957,18 +2039,22 @@ def check_train_matmuls(cfg, dev) -> dict:
 
 
 def check_train_flash(cfg, dev) -> dict:
-    """flash_attention's forward at one layer's train shape: the kernel held
-    against attention_ref (a zeroed KV tile must fail), its output's bits
-    unchanged by writing the LSE, and its time.  The backward kernel at this
-    shape is held and timed by ``check_flash_bwd`` (its first case)."""
+    """flash_attention's forward at one layer's train shape, as
+    ``FlashAttentionFn`` runs it (P split): the kernel held against
+    attention_ref (a zeroed KV tile must fail), its output's bits unchanged
+    by writing the LSE, and its time.  The backward kernel at this shape is
+    held and timed by ``check_flash_bwd`` (its first case)."""
     gen = torch.Generator(dev).manual_seed(12)
     B, H, KV, S, d = TRAIN_B, cfg.n_heads, cfg.n_kv_heads, TRAIN_S, cfg.hd
     q, k, v, o, lse, do = flash_bwd_inputs(B, H, KV, S, d, True, torch.bfloat16, dev, gen)
     want = attention_ref(q, k, v)
-    rec = {"forward": {**compare_flash(flash_attention(q, k, v), want),
+    def train_forward(with_lse):
+        return flash_ops._attend(q, k, v, True, with_lse, split_p=True)[0]
+
+    rec = {"forward": {**compare_flash(o, want),
                        "planted_fault": compare_flash(
                            attention_ref(q, *zero_kv_tile(k, v, 2)), want)},
-           "lse_leaves_the_output_bits": bool(torch.equal(o, flash_attention(q, k, v)))}
+           "lse_leaves_the_output_bits": bool(torch.equal(o, train_forward(False)))}
     del want
     free_memory()
     emit({"check": "flash_attention_train", **rec})
@@ -1976,7 +2062,7 @@ def check_train_flash(cfg, dev) -> dict:
     check(not rec["forward"]["planted_fault"]["within_tol"],
           f"flash check at the train shape passes a zeroed KV tile: {rec}")
     check(rec["lse_leaves_the_output_bits"], "flash: writing the LSE changed the output")
-    fwd = eager_ms(lambda: flash_attention(q, k, v))
+    fwd = eager_ms(lambda: train_forward(True))
     lib_fwd = eager_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                               enable_gqa=True))
     # the forward's bound from the shapes: its two products over the causal
@@ -3296,13 +3382,14 @@ def sim_kernel_entry(sim, sim_paths, sim_routes) -> dict:
         "ptxas": sim["kernel"]["ptxas"]}
 
 
-def kernels_line(cfgs, checks, paths, routes, trained, grads, bwd_paths, sim_entry) -> dict:
+def kernels_line(cfgs, checks, paths, routes, trained, grads, bwd_paths, sim_entry,
+                 ptxas) -> dict:
     """``paths``: each main path's launch counts, by phase; ``routes``: the
     same per route, for the kernels that have routes; ``trained`` and
     ``grads``: the train_tinyllama and train_grads results (each kernel's
     training launches and its backward's time); ``bwd_paths``: each training
     phase's backward kernel launches; ``sim_entry``: the batch simulator's
-    kernel's entry."""
+    kernel's entry; ``ptxas``: each source's ``-Xptxas -v`` summary."""
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     bwd_launches = {n: sum(p[n] for p in bwd_paths.values()) for n in BWD_SOURCES}
     fb, sb = checks["flash_attention_bwd"][0], checks["ssd_scan_bwd"][0]
@@ -3368,16 +3455,21 @@ def kernels_line(cfgs, checks, paths, routes, trained, grads, bwd_paths, sim_ent
          "max_abs_err": max(r["max_abs_err"] for r in checks["flash_attention"]),
          "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
          "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
-         "unit": (f"one launch at B={fa['B']}, H={fa['H']}, KV={fa['KV']}, S={fa['S']}, "
-                  f"d={fa['d']}, bf16, causal (22 per {ARCH} prefill forward, "
-                  f"6 per {HYBRID_ARCH})"),
+         "unit": (f"one call (the V pre-pass, then the attention kernel; training's "
+                  f"forward splits P and skips the pre-pass) at B={fa['B']}, "
+                  f"H={fa['H']}, KV={fa['KV']}, S={fa['S']}, d={fa['d']}, bf16, causal (22 per "
+                  f"{ARCH} prefill forward, 6 per {HYBRID_ARCH})"),
+         "prepass_ms": fa["prepass_ms"],
+         "scaled_v_check": checks["flash_attention_scaled_v"],
+         "ptxas": ptxas["flash_attention"],
          HYBRID_ARCH: {"unit": (f"one launch at B={fa_hybrid['B']}, H={fa_hybrid['H']}, "
                                 f"KV={fa_hybrid['KV']}, S={fa_hybrid['S']}, d={fa_hybrid['d']}, "
                                 "bf16, causal"),
                        **{k: fa_hybrid[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                    "library_ms", "max_abs_err")}},
+                                                    "library_ms", "max_abs_err", "prepass_ms")}},
          "by_arch": {r["arch"]: {k: r[k] for k in ("H", "KV", "d", "ms", "plain_ms", "bound_ms",
-                                                   "bound_by", "library_ms", "max_abs_err")}
+                                                   "bound_by", "library_ms", "max_abs_err",
+                                                   "prepass_ms")}
                      for r in checks["flash_attention"][4:]},
          "launches_by_path": {k: p["flash_attention"] for k, p in paths.items()},
          "training": {"launches_per_step": trained["launches_per_step"]["flash_attention"],
@@ -3512,7 +3604,8 @@ def main() -> int:
                   f"{name} launched no backward kernel: {got}")
         line = kernels_line(cfgs, results["kernel_checks"], paths, routes,
                             results["train_tinyllama"], results["train_grads"], bwd_paths,
-                            sim_kernel_entry(results["sim_batch"], sim_paths, sim_routes))
+                            sim_kernel_entry(results["sim_batch"], sim_paths, sim_routes),
+                            results["build_logs"]["ptxas"])
         for k in line["kernels"]:
             check(k["launches"] > 0, f"{k['name']} never launched on the main path")
             if k["name"] in BWD_SOURCES:

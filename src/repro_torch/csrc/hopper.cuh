@@ -18,6 +18,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,22 +64,35 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// Streaming multiprocessors of the current device, read once per device.
+inline int num_sms() {
+  static int cached[kMaxDevices] = {};
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (dev < kMaxDevices && cached[dev]) return cached[dev];
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+    return 1;
+  if (dev < kMaxDevices) cached[dev] = n;
+  return n;
+}
+
 inline CUtensorMapSwizzle swizzle_mode(int sw) {
   return sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
          : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                     : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-// A bf16 tensor map of `rank` (<= 3) dimensions, innermost first: dims[i]
-// elements, byte strides of dims 1.. in strides[], boxes of box[i] elements,
-// swizzled `sw` bytes (box[0] * 2 == sw).  Loads past the end fill zeros.
-// Returns false if the driver refuses it.
+// A tensor map of 2-byte elements (bf16, or `dtype`) of `rank` (<= 3)
+// dimensions, innermost first: dims[i] elements, byte strides of dims 1.. in
+// strides[], boxes of box[i] elements, swizzled `sw` bytes (box[0] * 2 ==
+// sw).  Loads past the end fill zeros.  Returns false if the driver refuses it.
 inline bool make_tmap(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                      const cuuint64_t* strides, const cuuint32_t* box, int sw) {
+                      const cuuint64_t* strides, const cuuint32_t* box, int sw,
+                      CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+  return encode(map, dtype, rank, const_cast<void*>(base), dims,
                 strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_mode(sw),
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -196,11 +210,26 @@ __device__ __forceinline__ void st_cluster_v4(uint32_t addr, float a, float b, f
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
                :: "r"(addr), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
 }
+__device__ __forceinline__ void st_cluster_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
 __device__ __forceinline__ void cluster_arrive_release() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 __device__ __forceinline__ void cluster_wait_acquire() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Programmatic dependent launch.  A kernel launched with the attribute
+// cudaLaunchAttributeProgrammaticStreamSerialization may start before the
+// kernel ahead of it in the stream has ended, once that kernel's CTAs have
+// all run griddep_launch_dependents (or ended); griddep_wait blocks until the
+// kernel ahead has ended and its writes are visible.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // Barrier `id` (1..15) over `threads` threads, e.g. the 128 of one warpgroup.
@@ -271,6 +300,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
@@ -400,80 +434,110 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint
       : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
+// wgmma m64nNk16 with A from registers (the m16n8k16 A fragment of the warp's
+// 16 rows) and an MN-major B from shared memory, fp32 accumulators: inputs
+// bf16 (wgmma_rs_nN) or fp16 (wgmma_rs_f16_nN; A and B of one type).
+#define HOPPER_WGMMA_RS_N16(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7" \
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  HOPPER_WGMMA_RS_N16("bf16");
 }
+__device__ __forceinline__ void wgmma_rs_f16_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                                 int scale_d) {
+  HOPPER_WGMMA_RS_N16("f16");
+}
+#undef HOPPER_WGMMA_RS_N16
 
+#define HOPPER_WGMMA_RS_N32(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  HOPPER_WGMMA_RS_N32("bf16");
 }
+__device__ __forceinline__ void wgmma_rs_f16_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                                 int scale_d) {
+  HOPPER_WGMMA_RS_N32("f16");
+}
+#undef HOPPER_WGMMA_RS_N32
 
+#define HOPPER_WGMMA_RS_N64(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  HOPPER_WGMMA_RS_N64("bf16");
 }
+__device__ __forceinline__ void wgmma_rs_f16_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                 int scale_d) {
+  HOPPER_WGMMA_RS_N64("f16");
+}
+#undef HOPPER_WGMMA_RS_N64
 
+#define HOPPER_WGMMA_RS_N128(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+                                              int scale_d) {
+  HOPPER_WGMMA_RS_N128("bf16");
 }
-
+__device__ __forceinline__ void wgmma_rs_f16_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                                  int scale_d) {
+  HOPPER_WGMMA_RS_N128("f16");
+}
+#undef HOPPER_WGMMA_RS_N128
 
 // wgmma m64nNk16 (N = 8, 16, 32 or 64), both operands from shared memory, A
 // MN-major (the transpose bit set: its 64 rows contiguous) and B K-major:
@@ -552,6 +616,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else if constexpr (N == 32) wgmma_rs_n32(d, a, db, scale_d);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db, scale_d);
   else wgmma_rs_n128(d, a, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_f16(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma_rs_f16: N is 16, 32, 64 or 128");
+  if constexpr (N == 16) wgmma_rs_f16_n16(d, a, db, scale_d);
+  else if constexpr (N == 32) wgmma_rs_f16_n32(d, a, db, scale_d);
+  else if constexpr (N == 64) wgmma_rs_f16_n64(d, a, db, scale_d);
+  else wgmma_rs_f16_n128(d, a, db, scale_d);
 }
 
 }  // namespace hopper

@@ -639,18 +639,6 @@ ltrf_matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   }
 }
 
-// Streaming multiprocessors of the current device, read once per device.
-int num_sms() {
-  static int cached[kMaxDevices] = {};
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
-  if (dev < kMaxDevices && cached[dev]) return cached[dev];
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
-    return 1;
-  if (dev < kMaxDevices) cached[dev] = n;
-  return n;
-}
-
 // The product's M, K, N; a and b as the layout lays them out (see above).
 template <int BN, int LAYOUT>
 cudaError_t launch_wgmma(const void* a, const void* b, void* out, void* partials, void* counters,

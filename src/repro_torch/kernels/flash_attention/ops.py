@@ -5,13 +5,19 @@ when q, k and v lie on the CPU.  For CUDA tensors it checks them and launches
 ``csrc/flash_attention.cu`` on the current stream; anything the kernel does
 not take raises.  Unlike the TPU wrapper, S need not be a multiple of the
 block: the kernel masks the ragged edge.  The route follows from the dtype:
-``"wgmma"`` for bf16 (TMA ring feeding wgmma), ``"fp32"`` for float32 (CUDA
-cores).  ``flash_attention.launches`` counts the launches and
-``flash_attention.launches_by_route`` counts them per route.
+``"wgmma"`` for bf16 (a persistent kernel: TMA rings feeding wgmma; P V
+in fp16 against V written as fp16 times a power of two per KV head by a
+pre-pass, or, in ``FlashAttentionFn``'s forward, P split into bf16 hi + lo
+against the bf16 V), ``"fp32"`` for float32 (CUDA cores).
+``flash_attention.launches`` counts the calls (a bf16 call's pre-pass and
+kernel count once) and ``flash_attention.launches_by_route`` counts them
+per route.
 
 Gradients: where grad is enabled and q, k or v requires it, the call runs
 inside ``FlashAttentionFn``, whose forward launches the kernel with its row
-log-sum-exp (LSE) written too, and whose backward is ``flash_bwd``: on CUDA
+log-sum-exp (LSE) written too and P split (fp16 P's rounding moves a bf16
+model's gradients several times further from the plain path's), and whose
+backward is ``flash_bwd``: on CUDA
 tensors the hand-written backward kernel ``csrc/flash_attention_bwd.cu``
 (three launches: D = rowsum(dO o O), then dK and dV with the GQA group sum
 inside each CTA, then dQ; no float atomics, so two runs give the same bits),
@@ -42,7 +48,7 @@ def _library():
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
     return fn
 
@@ -72,7 +78,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out, lse = _attend(q, k, v, causal, with_lse=True)
+        out, lse = _attend(q, k, v, causal, with_lse=True, split_p=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
@@ -106,10 +112,12 @@ def _check(q, k, v, what: str):
         raise ValueError(f"{what}: q, k, v must be 16-byte aligned")
 
 
-def _attend(q, k, v, causal: bool, with_lse: bool):
+def _attend(q, k, v, causal: bool, with_lse: bool, split_p: bool = False):
     """(output, fp32 LSE (B, H, S) or None): the plain version for CPU
-    tensors, else one launch of the kernel (which writes the LSE only when
-    asked; the output's bits do not depend on it)."""
+    tensors, else one call of the kernel, which writes the LSE only when
+    asked (the output's bits do not depend on it).  In bf16, P V takes P in
+    fp16 against the pre-pass's fp16 V, or with ``split_p`` P in bf16 hi +
+    lo against the bf16 V (two products a k-step, no pre-pass)."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attention_lse_ref(q, k, v, causal) if with_lse else (attention_ref(q, k, v, causal),
                                                                      None)
@@ -117,11 +125,18 @@ def _attend(q, k, v, causal: bool, with_lse: bool):
     B, H, S, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if with_lse else None
+    v16 = vexp = None
+    if q.dtype == torch.bfloat16:           # the pre-pass's exponents, + a tile counter
+        vexp = torch.empty(B * k.shape[1] + 1, dtype=torch.int32, device=q.device)
+        if not split_p:                     # the pre-pass's V
+            v16 = torch.empty_like(v, dtype=torch.float16)
     launch = _library()
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      B * H, S, d, H // k.shape[1], int(causal), _DTYPES[q.dtype],
                      1.0 / math.sqrt(d), None if lse is None else lse.data_ptr(),
+                     None if v16 is None else v16.data_ptr(),
+                     None if vexp is None else vexp.data_ptr(),
                      torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")

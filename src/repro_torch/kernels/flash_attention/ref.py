@@ -1,6 +1,6 @@
 """Plain PyTorch (naive softmax) versions of blocked causal GQA attention:
-the forward, the forward with its row log-sum-exp, and the backward in
-explicit formulas."""
+the forward, the forward with its row log-sum-exp, the backward in
+explicit formulas, and the bf16 kernel's pre-pass on V."""
 import math
 
 import torch
@@ -63,3 +63,17 @@ def flash_bwd_ref(q, k, v, o, lse, do, causal: bool = True):
         return t.reshape(B, KV, H // KV, S, d).sum(2)
 
     return dq.to(q.dtype), group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype)
+
+
+def v_to_f16_ref(v: torch.Tensor):
+    """The bf16 kernel's pre-pass on V: v (B, KV, S, d) bf16 -> (v16, e),
+    v16 = v 2^-e in fp16 and e int32 (B, KV), per (b, KV head) the least
+    exponent that puts the largest finite |v| times 2^-e at or below 2^15
+    (fp16 reaches 65504); e = 0 for a head with no finite nonzero value.
+    inf and NaN go through as they are.  Exact for every value that lands in
+    fp16's normal range (2^-14 and above)."""
+    a = v.double().abs().flatten(2)
+    mx = torch.where(torch.isfinite(a), a, 0.0).amax(-1)
+    frac, x = torch.frexp(mx)                      # mx = frac 2^x, frac in [0.5, 1)
+    e = torch.where(mx > 0, x - 15 - (frac == 0.5).int(), 0).int()
+    return (v.double() * torch.exp2(-e.double())[..., None, None]).half(), e

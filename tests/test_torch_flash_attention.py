@@ -9,6 +9,9 @@ from test_torch_parity import DTYPES, assert_close, randn, to_jax, to_torch  # n
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import v_to_f16_ref  # noqa: E402
+
+from flash_numerics import wgmma_numerics as _wgmma_numerics  # noqa: E402
 
 # test_kernels.py:84-88
 CONFIGS = [dict(B=1, H=2, KV=2, S=128, d=64),    # MHA
@@ -63,54 +66,93 @@ FLASH_TOL = dict(rtol=1e-2, atol=1e-3)
 FLASH_REL_L2 = 1e-2
 
 
-def _wgmma_numerics(q, k, v, causal, split_p, block=128):
-    """The bf16 wgmma kernel's arithmetic in fp32 torch: S = Q K^T summed in
-    fp32 (products of bf16 values are exact), an online softmax over 128-key
-    tiles in the log2 domain, P rounded to bf16 before P V -- or split into
-    bf16 hi + lo parts, each through P V, as the kernel does -- the row sum
-    of the unrounded P, and one rounding of the output."""
-    B, H, S, d = q.shape
-    rep = H // k.shape[1]
-    q, k, v = q.float(), k.repeat_interleave(rep, 1).float(), v.repeat_interleave(rep, 1).float()
-    scale = 1.4426950408889634 / d ** 0.5
-    m = torch.full((B, H, S, 1), -1e30)
-    l = torch.zeros(B, H, S, 1)
-    o = torch.zeros(B, H, S, d)
-    qp = torch.arange(S).view(S, 1)
-    for k0 in range(0, S, block):
-        s = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, k0:k0 + block])
-        if causal:
-            s = s.masked_fill(torch.arange(k0, min(k0 + block, S)).view(1, -1) > qp, -1e30)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp2((m - m_new) * scale)
-        p = torch.exp2(s * scale - m_new * scale)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        hi = p.bfloat16().float()
-        p_used = hi + (p - hi).bfloat16().float() if split_p else hi
-        o = o * alpha + torch.einsum("bhqk,bhkd->bhqd", p_used, v[:, :, k0:k0 + block])
-        m = m_new
-    return (o / l.clamp_min(1e-30)).bfloat16()
+def _scaled_qkv(B, H, KV, S, d, v_scales=None, seed=11):
+    """Seeded bf16 q, k, v, each KV head's V times its entry of ``v_scales``
+    (powers of two or 0: exact in bf16), and each query head's scale."""
+    q, k, v = (to_torch(a, "bfloat16") for a in _qkv(B, H, KV, S, d, seed=seed))
+    scales = torch.tensor(v_scales or [1.0] * KV, dtype=torch.float64)
+    v = (v.double() * scales[None, :, None, None]).bfloat16()
+    return q, k, v, scales.repeat_interleave(H // KV)
+
+
+def _within_flash_limits(got, want, head_scales) -> bool:
+    """Each query head held to FLASH_TOL, its atol times its V's scale, and
+    to FLASH_REL_L2."""
+    got, want = got.float(), want.float()
+    for h, sc in enumerate(head_scales.tolist()):
+        g, w = got[:, h], want[:, h]
+        if not torch.allclose(g, w, rtol=FLASH_TOL["rtol"], atol=FLASH_TOL["atol"] * sc):
+            return False
+        if float((g - w).norm() / w.norm().clamp_min(1e-30)) > FLASH_REL_L2:
+            return False
+    return True
 
 
 @pytest.mark.parametrize("cfg", [dict(B=2, H=8, KV=1, S=1024, d=64),    # chip_smoke's MQA check
-                                 dict(B=1, H=4, KV=1, S=63, d=128)], ids=["s1024", "s63"])
+                                 dict(B=1, H=4, KV=1, S=63, d=128),
+                                 dict(B=1, H=8, KV=2, S=1024, d=128),
+                                 dict(B=1, H=8, KV=2, S=1024, d=128, v_scales=[2.0 ** 20,
+                                                                            2.0 ** -20]),
+                                 dict(B=1, H=8, KV=2, S=1024, d=128, v_scales=[0.0, 1.0])],
+                         ids=["s1024", "s63", "gqa128", "v_scaled", "zero_head"])
 def test_split_p_keeps_the_wgmma_kernel_within_the_flash_limits(cfg):
-    """Why the bf16 kernel splits P: with P rounded once to bf16, as FA2/FA3
-    round it, single outputs move past the elementwise limit (the relative
-    L2 stays far under its own); split into hi + lo, P keeps ~16 bits and
-    the kernel's arithmetic holds the reference within both."""
-    q, k, v = (to_torch(a, "bfloat16") for a in _qkv(**cfg, seed=11))
+    """Why the bf16 kernel does not round P once to bf16, as FA2/FA3 do:
+    single outputs would move past the elementwise limit (the relative L2
+    stays far under its own).  P split into bf16 hi + lo (two products: the
+    forward that writes the LSE) and P in fp16 with the scaled fp16 V (one
+    product: the forward without it) both hold the reference within both,
+    per head, at any power-of-two scale of V.  A zeroed KV tile in the
+    kernel's arithmetic must fail them."""
+    q, k, v, head_scales = _scaled_qkv(**cfg)
     want = to_torch(jax_attention_ref(*(to_jax(a.float().numpy(), "bfloat16")
                                         for a in (q, k, v)))).float()
 
     def rel_l2(got):
         return float((got.float() - want).norm() / want.norm())
 
-    split = _wgmma_numerics(q, k, v, True, split_p=True)
-    assert torch.allclose(split.float(), want, **FLASH_TOL) and rel_l2(split) <= FLASH_REL_L2
-    single = _wgmma_numerics(q, k, v, True, split_p=False)
-    assert not torch.allclose(single.float(), want, **FLASH_TOL)
+    for mode in ("split", "fp16"):
+        assert _within_flash_limits(_wgmma_numerics(q, k, v, True, mode), want, head_scales), mode
+    single = _wgmma_numerics(q, k, v, True, "bf16")
+    assert not _within_flash_limits(single, want, head_scales)
     assert rel_l2(single) <= FLASH_REL_L2
+    S = q.shape[2]
+    k0, v0 = k.clone(), v.clone()
+    k0[:, :, S // 2:S // 2 + 64] = 0
+    v0[:, :, S // 2:S // 2 + 64] = 0
+    assert not _within_flash_limits(_wgmma_numerics(q, k0, v0, True, "fp16"), want, head_scales)
+
+
+def test_v_prepass_plain_version_is_exact_and_bounded():
+    """``v_to_f16_ref``: V = fp16 x 2^e exactly wherever V 2^-e lies in
+    fp16's normal range; the largest finite |V| 2^-e in (2^14, 2^15] on
+    every head with a finite nonzero value, down to bf16's subnormals, and
+    on heads that also hold inf or NaN (NaN beside finite values above
+    fp16's 65504 included), whose inf and NaN go through as they are; e = 0
+    on an all-zero head and on one of inf and NaN alone."""
+    scales = [1.0, 2.0 ** 20, 2.0 ** -20, 2.0 ** 100, 2.0 ** -126, 0.0, 1.0, 2.0 ** 20, 0.0]
+    q, k, v, _ = _scaled_qkv(2, 9, 9, 100, 32, v_scales=scales, seed=21)
+    v = v.clone()
+    v[:, 6, 7, 3] = float("inf")
+    v[:, 7, 9, 1] = float("nan")
+    v[:, 8, 0, 0], v[:, 8, 1, 1] = float("nan"), float("-inf")
+    v16, e = v_to_f16_ref(v)
+    assert v16.dtype == torch.float16 and v16.shape == v.shape
+    assert e.dtype == torch.int32 and e.shape == (2, 9)
+    a = v.double().abs()
+    mx = torch.where(torch.isfinite(a), a, 0.0).flatten(2).amax(-1)
+    top = mx * torch.exp2(-e.double())
+    live = [0, 1, 2, 3, 4, 6, 7]
+    assert ((top[:, live] > 2.0 ** 14) & (top[:, live] <= 2.0 ** 15)).all()
+    assert (e[:, 5] == 0).all() and (e[:, 8] == 0).all() and (e[:, 7] > 0).all()
+    finite = torch.isfinite(v)
+    normal = finite & (v16.double().abs() >= 2.0 ** -14)
+    back = v16.double() * torch.exp2(e.double())[..., None, None]
+    assert torch.equal(back[normal], v.double()[normal])
+    assert torch.isfinite(v16[finite]).all()
+    assert normal[:, live].float().mean() > 0.99     # all but values far below their head's max
+    assert torch.isinf(v16[:, 6, 7, 3]).all() and torch.isnan(v16[:, 7, 9, 1]).all()
+    assert torch.isnan(v16[:, 8, 0, 0]).all() and (v16[:, 8, 1, 1] == float("-inf")).all()
+    assert (v16[:, 5] == 0).all()
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,10 @@ pytestmark = pytest.mark.gpu
 # fp32 runs FFMA (not TF32) against torch's full-fp32 product
 TOL = {torch.bfloat16: dict(rtol=3e-2, atol=8e-2), torch.float32: dict(rtol=2e-4, atol=1e-4)}
 # flash_attention in bf16 (the wgmma kernel) computes S = Q K^T in fp32 (the
-# products of bf16 values are exact, so only the sum order differs), splits P
-# into bf16 hi + lo parts (~16 bits kept; a single bf16 P would move single
+# products of bf16 values are exact, so only the sum order differs), rounds P
+# to fp16 against V scaled to fp16 by a power of two per KV head (11 bits
+# kept) -- or, in FlashAttentionFn's forward, splits P into bf16 hi + lo
+# (~16 bits) against the bf16 V -- (a single bf16 P would move single
 # outputs by up to ~2e-3 relative and miss the elementwise limit) and
 # accumulates P V in fp32; the plain version computes in fp32.  Both round
 # once to bf16, so they differ by about one ulp (< 8e-3 of the value) where
@@ -306,6 +308,76 @@ def test_flash_attention_new_family_shapes(dev, H, KV, d):
     assert flash_attention.launches_by_route == {**before, "wgmma": before["wgmma"] + 1}
     torch.testing.assert_close(got.float(), attention_ref(q, k, v).float(),
                                **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("split_p", [False, True], ids=["fp16_p", "split_p"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(32, 4), (16, 1)], ids=["gqa", "mqa"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_persistent_walks_many_tiles(dev, d, heads, causal, split_p):
+    """More work tiles (B H x 128-row query blocks: 1,024 or 496) than the
+    card has SMs, so each persistent CTA walks several, its rings running on
+    from tile to tile, with a ragged S, in both forms of P (training's
+    forward splits it), the LSE written; two launches give the same bits."""
+    H, KV = heads
+    S = 2048 if H == 32 else 1983
+    g = torch.Generator(dev).manual_seed(8)
+    q, k, v = (torch.randn(2, n, S, d, device=dev, generator=g).bfloat16() for n in (H, KV, KV))
+    got, lse = flash_ops._attend(q, k, v, causal, True, split_p)
+    again = flash_ops._attend(q, k, v, causal, True, split_p)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want, want_lse = attention_lse_ref(q, k, v, causal)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_scaled_v_heads(dev, d):
+    """V's KV heads at 2^20, 2^-20, 1 and 0 times N(0, 1): the pre-pass
+    scales each to fp16 by a power of two of its own and the kernel scales
+    each head's output back; each query head within the flash limits, its
+    atol times its V's scale, and a relative L2 of its own."""
+    B, H, KV, S = 2, 8, 4, 300
+    g = torch.Generator(dev).manual_seed(9)
+    q, k, v = (torch.randn(B, n, S, d, device=dev, generator=g) for n in (H, KV, KV))
+    scales = torch.tensor([2.0 ** 20, 2.0 ** -20, 1.0, 0.0], device=dev)
+    q, k, v = q.bfloat16(), k.bfloat16(), (v * scales[None, :, None, None]).bfloat16()
+    got = flash_attention(q, k, v).float()
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v).float()
+    tol = FLASH_TOL[torch.bfloat16]
+    for h, sc in enumerate(scales.repeat_interleave(H // KV).tolist()):
+        torch.testing.assert_close(got[:, h], want[:, h], rtol=tol["rtol"], atol=tol["atol"] * sc)
+        assert float((got[:, h] - want[:, h]).norm()) <= 1e-2 * float(want[:, h].norm())
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_nonfinite_v_keeps_its_heads_range(dev, d):
+    """A KV head holding NaN beside finite values above fp16's 65504 (N(0, 1)
+    times 2^20), another holding inf: the pre-pass takes each head's
+    exponent from its largest finite value, so query rows whose causal tiles
+    never reach the non-finite key stay finite and within the flash limits
+    (atol times the head's scale), and rows that attend it are NaN or inf as
+    in the plain version."""
+    B, H, KV, S, pos = 2, 4, 2, 300, 200
+    g = torch.Generator(dev).manual_seed(12)
+    q, k, v = (torch.randn(B, n, S, d, device=dev, generator=g) for n in (H, KV, KV))
+    v[:, 0] *= 2.0 ** 20
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    v[:, 0, pos, 0] = float("nan")
+    v[:, 1, pos, 1] = float("inf")
+    got = flash_attention(q, k, v).float()
+    torch.cuda.synchronize()
+    clean = v.clone()
+    clean[:, :, pos] = 0
+    want = attention_ref(q, k, clean).float()      # rows < pos never attend key pos
+    tol = FLASH_TOL[torch.bfloat16]
+    for h, sc in enumerate([2.0 ** 20] * (H // KV) + [1.0] * (H // KV)):
+        torch.testing.assert_close(got[:, h, :128], want[:, h, :128], rtol=tol["rtol"],
+                                   atol=tol["atol"] * sc)
+    assert torch.isnan(got[:, :H // KV, pos:, 0]).all()
+    assert torch.isinf(got[:, H // KV:, pos:, 1]).all()
 
 
 def _family_batch(cfg, dev, S=40):
@@ -698,6 +770,8 @@ def test_flash_lse_leaves_the_output_bits(dev):
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, o, _, _ = _flash_bwd_inputs(dev, 2, 8, 2, 300, 64, True, dtype)
         assert torch.equal(o, flash_ops._attend(q, k, v, True, with_lse=False)[0])
+        split = flash_ops._attend(q, k, v, True, True, split_p=True)[0]   # training's form
+        assert torch.equal(split, flash_ops._attend(q, k, v, True, False, split_p=True)[0])
 
 
 def _ssd_grads(outs, dev, seed, used=(0, 1, 2, 3)):
