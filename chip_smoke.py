@@ -24,8 +24,13 @@ exits non-zero; no phase's error is caught):
    version, bit for bit, and times it; at llava-next-34b's shape one KV
    head's V is scaled by 2^20 and another's by 2^-20, each query head held
    to the flash limits alone (atol times its V's scale), and the output
-   with each head's 2^e left off must fail them.  Each matmul check also records the decode route's K split (and
-   cluster size) and requires two launches to give the same bits; each ssd check also gives
+   with each head's 2^e left off must fail them.  Each matmul check also
+   records the decode route's K split (and cluster size), or the forward
+   wgmma route's schedule (tiles, data-parallel waves, split tiles and their
+   k-slices, the busiest CTA's k-blocks), and requires two launches to give
+   the same bits; at tinyllama-1.1b's wk/wv (M = 2048) the output with one
+   partial of a split tile left out of its fixup must fail the limit; each
+   ssd check also gives
    ``bound_tc_ms``, its work as the kernel does it (3 bf16 products each).
    The backward kernels: flash's at tinyllama-1.1b's train shape and at
    each head dim with a ragged S, causal and not (bf16 held to SDPA's fp32
@@ -624,6 +629,38 @@ def phase_build_logs() -> dict:
     return out
 
 
+# the planted split fault's shape (at M = 2048): tinyllama-1.1b's wk/wv,
+# whose 32 tiles are each cut into k-slices
+DROPPED_PARTIAL_KN = (2048, 256)
+
+
+def forward_schedule(M, K, N) -> dict:
+    """The forward wgmma route's schedule of (M, K, N): tile width, output
+    tiles, data-parallel waves (whole tiles, one a CTA), the tiles split and
+    the k-slices each is cut into, and the k-blocks of the busiest CTA."""
+    s = mm_ops.schedule(M, K, N)
+    return {"bn": s.bn, "tiles": s.tiles,
+            "dp_waves": (s.tiles - s.split_tiles) // mm_ops.NUM_SMS,
+            "split_tiles": s.split_tiles, "split": s.split, "grid": s.grid,
+            "longest_blocks": s.longest()}
+
+
+def drop_a_partial(got, x, w):
+    """The planted fault: the kernel's output with the second k-slice of the
+    first split tile left out of its fixup, as a fixup that dropped that
+    partial would have rounded it."""
+    M, K = x.shape
+    s = mm_ops.schedule(M, K, w.shape[1])
+    check(s.split > 1, f"ltrf_matmul {M}x{K}x{w.shape[1]}: no tile split to plant a fault in")
+    tile, kb0, kb1 = s.unit(s.slices(0)[1])
+    rows = slice((tile % s.m_tiles) * 128, (tile % s.m_tiles) * 128 + 128)
+    cols = slice((tile // s.m_tiles) * s.bn, (tile // s.m_tiles) * s.bn + s.bn)
+    ks = slice(64 * kb0, 64 * kb1)
+    out = got.float()
+    out[rows, cols] -= x[rows, ks].float() @ w[ks, cols].float()
+    return out.to(got.dtype)
+
+
 def check_matmuls(cfgs, dev, gen) -> list:
     shapes = sorted({kn for cfg in cfgs for kn, _ in slice_matmuls(cfg)})
     cases = [(M, K, N, torch.bfloat16) for M in (8, 2048) for K, N in shapes]
@@ -651,6 +688,10 @@ def check_matmuls(cfgs, dev, gen) -> list:
                        "intervals": plan.num_intervals, "slots": plan.num_slots,
                        "max_bytes_per_round": plan.max_interval_bytes(),
                        "smem_per_cta": plan.vmem_budget}
+        if mm_ops.route(M, x.element_size()) == "wgmma":
+            rec["schedule"] = forward_schedule(M, K, N)
+            if (K, N) == DROPPED_PARTIAL_KN:
+                rec["dropped_partial"] = compare(drop_a_partial(got, x, w), matmul_ref(x, w), dt)
         copies = [w] + [w.clone() for _ in range(max(0, math.ceil(2 * L2_BYTES / w.nbytes) - 1))]
         rec["ms"], rec["eager_ms"] = time_ms([lambda w=c: ltrf_matmul(x, w) for c in copies])
         # the plain version in fp32 runs ~20x the kernel's time: at the large
@@ -664,6 +705,8 @@ def check_matmuls(cfgs, dev, gen) -> list:
         del copies
         emit({"check": "ltrf_matmul", **rec})
         check(rec["within_tol"], f"ltrf_matmul {M}x{K}x{N} {dt} disagrees with plain: {rec}")
+        check("dropped_partial" not in rec or not rec["dropped_partial"]["within_tol"],
+              f"ltrf_matmul {M}x{K}x{N}: the check passes a fixup that drops a partial")
         # the decode route's split-K sums its slices in a fixed order: serving
         # compares greedy tokens, so two launches must give the same bits
         check(rec["same_bits_twice"], f"ltrf_matmul {M}x{K}x{N} {dt}: two launches differ")
@@ -1987,12 +2030,17 @@ def check_train_matmuls(cfg, dev) -> dict:
         dy = (torch.randn(M, N, device=dev, generator=gen) / math.sqrt(N)).bfloat16()
         dx, dw = mm_ops.matmul_vjp(x, w, dy, (True, True))
         again = mm_ops.matmul_vjp(x, w, dy, (True, True))
-        products = {"forward": (ltrf_matmul(x, w), lambda: matmul_ref(x, w), False),
+        fwd = ltrf_matmul(x, w)
+        products = {"forward": (fwd, lambda: matmul_ref(x, w), False),
                     "dX": (dx, lambda: matmul_ref(dy, w.t()), True),
                     "dW": (dw, lambda: matmul_ref(x.t(), dy), False)}
         rec = {"K": K, "N": N, "per_step": n, **backward_plan(M, K, N),
-               "same_bits_twice": bool(torch.equal(dx, again[0]) and torch.equal(dw, again[1]))}
+               "forward_schedule": forward_schedule(M, K, N),
+               "same_bits_twice": bool(torch.equal(dx, again[0]) and torch.equal(dw, again[1])),
+               "forward_same_bits_twice": bool(torch.equal(fwd, ltrf_matmul(x, w)))}
         check(rec["same_bits_twice"], f"train matmul backward at K={K}, N={N}: two launches differ")
+        check(rec["forward_same_bits_twice"], f"train matmul forward at K={K}, N={N}: "
+                                              "two launches differ")
         del again
         for name, (got, plain, transpose) in products.items():
             want = plain()
@@ -2005,7 +2053,7 @@ def check_train_matmuls(cfg, dev) -> dict:
             check(not rec[name][fault]["within_tol"],
                   f"train matmul {name} check at K={K}, N={N} passes a planted {fault}")
             del want
-        del dx, dw, products
+        del dx, dw, fwd, products
         ms, _ = time_ms([lambda: mm_ops.matmul_vjp(x, w, dy, (True, True))], min_iters=5)
         lib, _ = time_ms([lambda: (torch.matmul(dy, w.t()), torch.matmul(x.t(), dy))],
                          min_iters=5)

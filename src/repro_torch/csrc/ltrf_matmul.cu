@@ -14,9 +14,10 @@
 // The paper's mapping: the weight matrix in HBM is the large, slow main
 // register file; a ring of shared-memory stages is the register-file cache;
 // the next interval's weight tiles are in flight while the consumers compute
-// on the current ones.  One CTA owns one output tile and streams its column
-// of weight tiles through the ring, whose depth is the num_slots of the
-// validated per-CTA IntervalPlan the wrapper builds (repro_torch/core/plan.py).
+// on the current ones.  A CTA streams the weight tiles of its work units
+// (output tiles, or k-slices of them) through the ring, whose depth is the
+// num_slots of the validated per-CTA IntervalPlan the wrapper builds
+// (repro_torch/core/plan.py).
 // Three routes, chosen by the wrapper from dtype, M and the operands' layout:
 //
 // wgmma (bf16, M > 64, and the backward's layouts at every M; prefill and
@@ -27,8 +28,11 @@
 // flight, one full and one empty mbarrier per stage.  Two consumer
 // warpgroups of 64 rows each run wgmma m64nBNk16 from shared memory (B with
 // the transpose bit) into fp32 registers, keeping one k-stage of wgmma in
-// flight.  The grid is persistent (one CTA an SM walks the output tiles), so
-// the ring fills the next tile while the consumers finish this one; they
+// flight.  The grid is persistent (one CTA an SM walks its work units:
+// whole output tiles in full waves, and the tiles of a ragged last wave, or
+// of less than a wave, cut into k-slices over the SMs that would idle, their
+// fp32 partials summed in a fixed order by the tile's last slice), so the
+// ring fills the next tile while the consumers finish this one; they
 // round the tile into shared memory and store it with TMA, which leaves them
 // free for the next tile at once (stores straight from registers, 4 bytes a
 // thread and 8 rows a warp instruction, left the tensor cores idle for a
@@ -442,13 +446,20 @@ ltrf_matmul_decode(const __grid_constant__ CUtensorMap tx, const __grid_constant
 // of x and dY, which are the TMA maps' outer dimension, so its ragged end is
 // TMA's zero fill and no row count is padded.
 //
-// Split reduction (nt and tn only; the wrapper's split_k): where the output
-// tiles are too few to fill the card, the K blocks are cut into `split`
-// slices, one work unit a (tile, slice); each unit writes its fp32 partial to
-// a workspace and bumps its tile's counter, and the unit that arrives last
-// sums the slices in the fixed order 0 .. split-1, rounds once and stores the
-// tile, then sets the counter back to 0.  No float atomics: two launches give
-// the same bits.
+// Split reduction: where the output tiles leave SMs idle, the K blocks of
+// split_tiles tiles are cut into `split` slices, one work unit a (tile,
+// slice); each unit writes its fp32 partial to a workspace and bumps its
+// tile's counter, and the unit that arrives last sums the slices in the
+// fixed order 0 .. split-1, rounds once and stores the tile, then sets the
+// counter back to 0.  No float atomics: two launches give the same bits;
+// nothing waits on another CTA, so no residency can deadlock.  The
+// backward (nt, tn; the wrapper's split_k) splits every tile when they are
+// at most half a wave.  The forward (nn; the wrapper's Schedule, a
+// stream-K schedule whose shares are whole-tile k-slices) sends whole tiles
+// in full waves, one a CTA, and splits the tiles of a ragged last wave (or
+// of less than one wave), so every SM works to the end of the launch.
+// Units are numbered slices first (slice-major), then the whole tiles; CTA
+// b takes units b, b + gridDim.x, ...
 
 constexpr int kLayoutNN = 0, kLayoutNT = 1, kLayoutTN = 2;
 constexpr int kWgBM = 128;                 // two consumer warpgroups of 64 rows
@@ -469,20 +480,97 @@ size_t wgmma_smem_bytes(int stages) {
          2 * kStagingBytes + 16;
 }
 
+// One thread's count of a split tile, at GPU scope: a release of every write
+// ordered before it (the CTA barrier before it orders its threads' partial
+// stores) and an acquire of the writes released by the earlier counts, in
+// place of a sequentially consistent fence in every thread.
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// acc (+)= one fp32 partial, as the unit's threads wrote it: 16 bytes a
+// thread side by side, read through L2 (another CTA wrote it)
+template <bool ADD, int N>
+__device__ __forceinline__ void add_partial(float (&acc)[N], const float* p) {
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(p + 128 * j));
+    if (ADD) {
+      acc[j] += v.x; acc[j + 1] += v.y; acc[j + 2] += v.z; acc[j + 3] += v.w;
+    } else {
+      acc[j] = v.x; acc[j + 1] = v.y; acc[j + 2] = v.z; acc[j + 3] = v.w;
+    }
+  }
+}
+
+// acc = (acc + p) + q, elementwise in that order, with both partials' loads
+// in flight at once (one L2 round trip for two partials; 128-wide tiles,
+// whose 64 accumulators leave room for 128 more)
+template <int N>
+__device__ __forceinline__ void add_two_partials(float (&acc)[N], const float* p, const float* q) {
+  float4 v[N / 4], w[N / 4];
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    v[j / 4] = __ldcg(reinterpret_cast<const float4*>(p + 128 * j));
+    w[j / 4] = __ldcg(reinterpret_cast<const float4*>(q + 128 * j));
+  }
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    acc[j] = (acc[j] + v[j / 4].x) + w[j / 4].x;
+    acc[j + 1] = (acc[j + 1] + v[j / 4].y) + w[j / 4].y;
+    acc[j + 2] = (acc[j + 2] + v[j / 4].z) + w[j / 4].z;
+    acc[j + 3] = (acc[j + 3] + v[j / 4].w) + w[j / 4].w;
+  }
+}
+
+// One work unit: k-blocks [kb0, kb1) of output tile `tile`; `slot`, its
+// number, the workspace slot of its partial where the tile is split.
+struct WgUnit {
+  int tile, kb0, kb1, slot;
+};
+
+// The units of a launch (see above): the first split_tiles tiles' `split`
+// k-slices, slice-major, then the other tiles whole, each as one unit.  The
+// wrapper's Schedule.unit is the same arithmetic.
+struct Walk {
+  int n_tiles, n_k, split_tiles, split;
+  __device__ bool unit(int i, WgUnit& u) const {
+    const int v = blockIdx.x + i * gridDim.x;
+    if (v >= split_tiles * split + n_tiles - split_tiles) return false;
+    if (v < split_tiles * split) {
+      const int slice = v / split_tiles;
+      u = {v % split_tiles, (int)((long long)slice * n_k / split),
+           (int)((long long)(slice + 1) * n_k / split), v};
+    } else {
+      u = {v - split_tiles * (split - 1), 0, n_k, -1};
+    }
+    return true;
+  }
+  __device__ bool partial(const WgUnit& u) const { return split > 1 && u.slot >= 0; }
+};
+
 // Stage s of the ring: the a tile (128 M rows x 64 K values, 16 KB), then
 // BN / 64 boxes of the b tile (64 x 64 each).  Each consumer's output staging
 // (two 64 x 64 boxes, 128-byte swizzled) and the barriers follow the ring.
-// The grid is persistent: CTA b takes work units b, b + gridDim.x, ..., and
-// the ring runs on across them, so the producer fills the next unit's stages
-// while the consumers store the last one, and the consumers go on while TMA
-// writes their staged output.  Units are numbered M-tile fastest (then N-tile,
-// then slice), so the CTAs working at one time share their b tiles and each
-// is read from HBM about once.
-template <int BN, int LAYOUT>
+// The grid is persistent: each CTA walks its list of work units (the Walk:
+// producer and consumers walk the same one), and the ring runs on
+// across them, so the producer fills the next unit's stages while the
+// consumers store the last one, and the consumers go on while TMA writes
+// their staged output.  Tiles are numbered M-tile fastest, so the CTAs
+// working at one time share their b tiles and each is read from HBM about
+// once.  split and split_tiles give the units; SPLIT: some tile is split.  A
+// product with no tile split launches the instantiation without the fixup
+// code (PERF.md: a fixup compiled in once slowed every k-block of the
+// forward, and the backward's fixup changed with the forward's split).
+template <int BN, int LAYOUT, bool SPLIT>
 __global__ void __launch_bounds__(kWgThreads, 1)
 ltrf_matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                   const __grid_constant__ CUtensorMap tout, float* __restrict__ partials,
-                  int* __restrict__ counters, int M, int K, int N, int split, int stages) {
+                  int* __restrict__ counters, int M, int K, int N, int split, int split_tiles,
+                  int stages) {
   constexpr int kStage = wgmma_stage_bytes<BN>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -494,8 +582,8 @@ ltrf_matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   const int wg = threadIdx.x / 128;
   const int m_tiles = (M + kWgBM - 1) / kWgBM;
   const int n_tiles = m_tiles * ((N + BN - 1) / BN);
-  const int n_units = n_tiles * split;
   const int n_k = (K + kWgBK - 1) / kWgBK;
+  const Walk walk{n_tiles, n_k, split_tiles, split};
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -512,12 +600,11 @@ ltrf_matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant_
     regs_dealloc<24>();
     if (threadIdx.x == 0) {
       int it = 0;
-      for (int unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
-        const int tile = unit % n_tiles, slice = unit / n_tiles;
-        const int m0 = (tile % m_tiles) * kWgBM;
-        const int n0 = (tile / m_tiles) * BN;
-        const int kb1 = (int)((long long)(slice + 1) * n_k / split);
-        for (int kt = (int)((long long)slice * n_k / split); kt < kb1; ++kt, ++it) {
+      WgUnit u;
+      for (int i = 0; walk.unit(i, u); ++i) {
+        const int m0 = (u.tile % m_tiles) * kWgBM;
+        const int n0 = (u.tile / m_tiles) * BN;
+        for (int kt = u.kb0; kt < u.kb1; ++kt, ++it) {
           const int s = it % stages;
           if (it >= stages) mbar_wait(&empty[s], ((it / stages) + 1) & 1);
           unsigned char* st = smem + (size_t)s * kStage;
@@ -547,13 +634,12 @@ ltrf_matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant_
     unsigned char* stage_out = staging + c * kStagingBytes;
     float acc[BN / 2];
     int it = 0;
-    for (int unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
-      const int tile = unit % n_tiles, slice = unit / n_tiles;
-      const int m0 = (tile % m_tiles) * kWgBM;
-      const int n0 = (tile / m_tiles) * BN;
-      const int kb0 = (int)((long long)slice * n_k / split);
-      const int kb1 = (int)((long long)(slice + 1) * n_k / split);
-      for (int kt = kb0; kt < kb1; ++kt, ++it) {
+    WgUnit u;
+    for (int i = 0; walk.unit(i, u); ++i) {
+      const int m0 = (u.tile % m_tiles) * kWgBM;
+      const int n0 = (u.tile / m_tiles) * BN;
+      const int kb0 = u.kb0;
+      for (int kt = kb0; kt < u.kb1; ++kt, ++it) {
         const int s = it % stages;
         mbar_wait(&full[s], (it / stages) & 1);
         const uint32_t xa = smem_u32(smem + (size_t)s * kStage) + c * 64 * 128;
@@ -579,35 +665,35 @@ ltrf_matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant_
       fence_regs(acc);
       if (threadIdx.x % 128 == 0) mbar_arrive(&empty[(it - 1) % stages]);
 
-      if constexpr (LAYOUT != kLayoutNN) {
-        if (split > 1) {
-          // this unit's fp32 partial, 16 bytes a thread side by side (a
-          // warp's stores cover 512 contiguous bytes), then the tile's count
-          const size_t rows = (size_t)kWgBM * BN, part = (size_t)c * 64 * BN + 4 * wtid;
-          float* mine = partials + (size_t)unit * rows + part;
+      if (SPLIT && walk.partial(u)) {
+        // this unit's fp32 partial, 16 bytes a thread side by side (a warp's
+        // stores cover 512 contiguous bytes), then the tile's count
+        const size_t rows = (size_t)kWgBM * BN, part = (size_t)c * 64 * BN + 4 * wtid;
+        float* mine = partials + (size_t)u.slot * rows + part;
 #pragma unroll
-          for (int j = 0; j < BN / 2; j += 4)
-            *reinterpret_cast<float4*>(mine + 128 * j) =
-                make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
-          __threadfence();                 // the partial before the count
-          named_barrier(3, 256);
-          if (threadIdx.x == 128) *last_unit = atomicAdd(&counters[tile], 1) == split - 1;
-          named_barrier(3, 256);
-          if (!*last_unit) continue;
-          __threadfence();
-          // the slices in the fixed order 0 .. split-1
-#pragma unroll
-          for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
-          for (int sl = 0; sl < split; ++sl) {
-            const float* p = partials + (size_t)(sl * n_tiles + tile) * rows + part;
-#pragma unroll
-            for (int j = 0; j < BN / 2; j += 4) {
-              const float4 v = __ldcg(reinterpret_cast<const float4*>(p + 128 * j));
-              acc[j] += v.x; acc[j + 1] += v.y; acc[j + 2] += v.z; acc[j + 3] += v.w;
-            }
-          }
-          if (threadIdx.x == 128) counters[tile] = 0;
-        }
+        for (int j = 0; j < BN / 2; j += 4)
+          *reinterpret_cast<float4*>(mine + 128 * j) =
+              make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+        // the count releases the partial (the barrier orders every
+        // thread's stores before it) and, for the tile's last unit, acquires
+        // the others' (the barrier orders the loads below after it)
+        named_barrier(3, 256);
+        if (threadIdx.x == 128)
+          *last_unit = atom_add_acq_rel(&counters[u.tile], 1) == split - 1;
+        named_barrier(3, 256);
+        if (!*last_unit) continue;
+        // the slices in the fixed order 0 .. split-1 (units tile + j *
+        // split_tiles), from slice 0's partial (held in acc already where this
+        // unit is slice 0: the same values)
+        auto at = [&](int j) {
+          return partials + (size_t)(u.tile + j * split_tiles) * rows + part;
+        };
+        if (u.slot != u.tile) add_partial<false>(acc, at(0));
+        int j = 1;
+        if constexpr (BN == 128)
+          for (; j + 1 < split; j += 2) add_two_partials(acc, at(j), at(j + 1));
+        for (; j < split; ++j) add_partial<true>(acc, at(j));
+        if (threadIdx.x == 128) counters[u.tile] = 0;
       }
 
       // epilogue, 128 columns at a time: round into the staging boxes (as
@@ -640,9 +726,10 @@ ltrf_matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant_
 }
 
 // The product's M, K, N; a and b as the layout lays them out (see above).
-template <int BN, int LAYOUT>
+template <int BN, int LAYOUT, bool SPLIT>
 cudaError_t launch_wgmma(const void* a, const void* b, void* out, void* partials, void* counters,
-                         int M, int K, int N, int split, int stages, cudaStream_t stream) {
+                         int M, int K, int N, int split, int split_tiles, int stages,
+                         cudaStream_t stream) {
   constexpr bool kTransA = LAYOUT == kLayoutTN, kKMajorB = LAYOUT == kLayoutNT;
   CUtensorMap ta, tb, tout;
   // a: M x K K-major (rows of K values) or, for tn, K x M (rows of M values)
@@ -662,25 +749,42 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* out, void* partials
     return cudaErrorInvalidValue;
   const size_t smem = wgmma_smem_bytes<BN>(stages);
   if (smem > (size_t)kSmemPerBlock) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<ltrf_matmul_wgmma<BN, LAYOUT>>();
+  cudaError_t err = allow_smem<ltrf_matmul_wgmma<BN, LAYOUT, SPLIT>>();
   if (err != cudaSuccess) return err;
-  const int units = ((M + kWgBM - 1) / kWgBM) * ((N + BN - 1) / BN) * split;
+  const int tiles = ((M + kWgBM - 1) / kWgBM) * ((N + BN - 1) / BN);
+  const int units = split_tiles * split + tiles - split_tiles;
   const int grid = units < num_sms() ? units : num_sms();
-  ltrf_matmul_wgmma<BN, LAYOUT><<<grid, kWgThreads, smem, stream>>>(
+  ltrf_matmul_wgmma<BN, LAYOUT, SPLIT><<<grid, kWgThreads, smem, stream>>>(
       ta, tb, tout, static_cast<float*>(partials), static_cast<int*>(counters), M, K, N, split,
-      stages);
+      split_tiles, stages);
   return cudaGetLastError();
+}
+
+// nt and tn split all their tiles (or none); nn its first split_tiles (or
+// none).  An unsplit product launches the instantiation without the fixup.
+template <int BN, int LAYOUT>
+cudaError_t launch_wgmma_split(const void* a, const void* b, void* out, void* partials,
+                               void* counters, int M, int K, int N, int split, int split_tiles,
+                               int stages, cudaStream_t s) {
+  if (split > 1)
+    return launch_wgmma<BN, LAYOUT, true>(a, b, out, partials, counters, M, K, N, split,
+                                          split_tiles, stages, s);
+  return launch_wgmma<BN, LAYOUT, false>(a, b, out, partials, counters, M, K, N, 1, 0, stages, s);
 }
 
 template <int BN>
 cudaError_t launch_wgmma_layout(int layout, const void* a, const void* b, void* out,
                                 void* partials, void* counters, int M, int K, int N, int split,
-                                int stages, cudaStream_t s) {
+                                int split_tiles, int stages, cudaStream_t s) {
+  const int tiles = ((M + kWgBM - 1) / kWgBM) * ((N + BN - 1) / BN);
   if (layout == kLayoutNT)
-    return launch_wgmma<BN, kLayoutNT>(a, b, out, partials, counters, M, K, N, split, stages, s);
+    return launch_wgmma_split<BN, kLayoutNT>(a, b, out, partials, counters, M, K, N, split, tiles,
+                                             stages, s);
   if (layout == kLayoutTN)
-    return launch_wgmma<BN, kLayoutTN>(a, b, out, partials, counters, M, K, N, split, stages, s);
-  return launch_wgmma<BN, kLayoutNN>(a, b, out, partials, counters, M, K, N, split, stages, s);
+    return launch_wgmma_split<BN, kLayoutTN>(a, b, out, partials, counters, M, K, N, split, tiles,
+                                             stages, s);
+  return launch_wgmma_split<BN, kLayoutNN>(a, b, out, partials, counters, M, K, N, split,
+                                           split_tiles, stages, s);
 }
 
 template <int MP>
@@ -734,11 +838,15 @@ cudaError_t launch_decode(const void* x, const void* w, void* out, void* partial
 // and tn take 1 .. the number of 64-row K blocks and, when split > 1, a
 // workspace of tiles * split * 128 * bn floats.  Both take ceil(N / 64) (or
 // tiles) int counters that are 0 (and are 0 again when the launch ends).
-// Other routes and layouts take split = 1.  Returns the launch's cudaError_t
-// (0 on success).
+// The wgmma route's nn takes split 1 (whole tiles), or split > 1 with the
+// number of tiles split, split_tiles (the wrapper's Schedule), a workspace of
+// split_tiles * split * 128 * bn floats and split_tiles zeroed counters.  Other
+// routes take split = 1; only nn reads split_tiles.  Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int ltrf_matmul_launch(const void* x, const void* w, void* out, int M, int K, int N,
                                   int dtype, int bm, int bk, int bn, int stages, int split,
-                                  void* partials, void* counters, int layout, void* stream) {
+                                  void* partials, void* counters, int layout, int split_tiles,
+                                  void* stream) {
   if (stages < 2 || M <= 0 || K <= 0 || N <= 0 || split < 1 || layout < kLayoutNN ||
       layout > kLayoutTN)
     return cudaErrorInvalidValue;
@@ -759,14 +867,15 @@ extern "C" int ltrf_matmul_launch(const void* x, const void* w, void* out, int M
   }
   if (stages > kMaxStages) return cudaErrorInvalidValue;
   if (wgmma_tiles) {
-    // the forward is never split; a split backward needs its workspace
-    if (split > (K + kWgBK - 1) / kWgBK ||
-        (split > 1 && (layout == kLayoutNN || !partials || !counters)))
+    // a split needs its workspace; a split forward names its split tiles
+    const int tiles = ((M + kWgBM - 1) / kWgBM) * ((N + bn - 1) / bn);
+    if (split > (K + kWgBK - 1) / kWgBK || (split > 1 && (!partials || !counters)) ||
+        (layout == kLayoutNN && split > 1 && (split_tiles < 1 || split_tiles > tiles)))
       return cudaErrorInvalidValue;
     return bn == 128 ? launch_wgmma_layout<128>(layout, x, w, out, partials, counters, M, K, N,
-                                                split, stages, s)
+                                                split, split_tiles, stages, s)
                      : launch_wgmma_layout<256>(layout, x, w, out, partials, counters, M, K, N,
-                                                split, stages, s);
+                                                split, split_tiles, stages, s);
   }
   if (split != 1) return cudaErrorInvalidValue;
   if (dtype == 0) {

@@ -19,9 +19,10 @@ the reference keeps the block's products, recomputes them here too.
 Otherwise (prefill, serving) the blocks run as they are.
 
 An ``lm_head`` whose width (vocab, or n_codebooks * vocab) is not a multiple
-of 8 is held with zero columns up to a multiple of 64 (``pad_head``), so its
-rows are a multiple of 16 bytes, as the matmul kernel and TMA need; every
-logits tensor is cut back to the true width before it is returned or used.
+of 64 is held with zero columns up to one (``pad_head``), so its rows are a
+multiple of 128 bytes, which the matmul kernel's TMA loads read fastest (and
+16 bytes, which they need); every logits tensor is cut back to the true
+width before it is returned or used.
 
 Activations are annotated with logical axes at the reference's seven sites
 (``distributed.sharding.constrain``): a no-op without sharding rules, a
@@ -69,9 +70,11 @@ def head_width(cfg: ArchConfig) -> int:
 
 
 def held_width(n: int) -> int:
-    """The width a head of true width n is held at: n if it is a multiple of
-    8, else n rounded up to a multiple of 64."""
-    return n if n % 8 == 0 else -(-n // 64) * 64
+    """The width a head of true width n is held at: n rounded up to a
+    multiple of 64 (n itself where it is one), so each weight row is a whole
+    number of 128-byte lines: TMA loads rows that are an odd multiple of 16
+    bytes slower (mamba2-1.3b's 50280 is held at 50304)."""
+    return -(-n // 64) * 64
 
 
 def pad_head(w: torch.Tensor) -> torch.Tensor:

@@ -93,6 +93,53 @@ def test_ltrf_matmul_wgmma_route_edges(dev, M, K, N):
     torch.testing.assert_close(got.float(), matmul_ref(x, w).float(), **TOL[torch.bfloat16])
 
 
+# the forward's split schedule at its edges (M, K, N): ragged M, N and K;
+# K shorter than one slice of the floor (too shallow to split) and shorter
+# than one k-block; tiles that make exactly one wave (1408 rows: 11 x 12
+# tiles of 128 x 256); a single tile; and the narrow and ragged-wave rows of
+# granite-20b (wk/wv), granite-moe (wk/wv, wq/wo) and phi3 (wk/wv, w_down)
+STREAM_K_EDGES = [(1000, 1000, 264), (300, 4104, 136), (2048, 64, 256), (2048, 40, 520),
+                  (1408, 2048, 3072), (100, 5000, 104), (2048, 6144, 128), (2048, 1536, 512),
+                  (2048, 1536, 1536), (2048, 5120, 1280), (2048, 17920, 5120)]
+
+
+@pytest.mark.parametrize("M,K,N", STREAM_K_EDGES)
+def test_ltrf_matmul_stream_k_edges(dev, M, K, N):
+    """The forward wgmma route under every candidate schedule of the shape
+    (whole tiles alone, the ragged wave's tiles cut into k-slices, both tile
+    widths), under slices down to one k-block and as many as the SMs hold,
+    and under the one it picks: each within TOL's bf16 row of matmul_ref,
+    two launches the same bits, the pick counted on the wgmma route, and
+    every counter back at 0."""
+    from repro_torch.kernels.ltrf_matmul import ops as mm_ops
+    g = torch.Generator(dev).manual_seed(12)
+    x = torch.randn(M, K, device=dev, generator=g).bfloat16()
+    w = (torch.randn(K, N, device=dev, generator=g) / K ** 0.5).bfloat16()
+    want = matmul_ref(x, w).float()
+    before = dict(ltrf_matmul.launches_by_route)
+    got, again = ltrf_matmul(x, w), ltrf_matmul(x, w)
+    torch.cuda.synchronize()
+    assert ltrf_matmul.launches_by_route == {**before, "wgmma": before["wgmma"] + 2}
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want, **TOL[torch.bfloat16])
+    deep = []
+    for bn in (128, 256):
+        dp = mm_ops.data_parallel(M, K, N, bn)
+        rem, n_k = dp.tiles % mm_ops.NUM_SMS, dp.n_k
+        splits = {2, n_k, mm_ops.NUM_SMS // max(rem, 1)}
+        deep += [mm_ops.data_parallel(M, K, N, bn, s) for s in splits
+                 if rem and 1 < s <= n_k and s * rem <= mm_ops.NUM_SMS]
+    for s in mm_ops.candidates(M, K, N) + deep:
+        outs = [torch.full((M, N), float("nan"), dtype=torch.bfloat16, device=dev)
+                for _ in range(2)]
+        for out in outs:
+            mm_ops._launch(x, w, out, K, "nn", (128, 64, s.bn), mm_ops.wgmma_stages(s.bn), 1, s)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1]), s
+        torch.testing.assert_close(outs[0].float(), want, **TOL[torch.bfloat16], msg=str(s))
+    assert not mm_ops._workspace(dev)[1].any()
+
+
 @pytest.mark.parametrize("N", [8, 264, 2048, 50280])
 @pytest.mark.parametrize("K", [136, 2048, 5632])
 @pytest.mark.parametrize("M", [1, 7, 8, 9, 16, 33, 64])

@@ -282,15 +282,46 @@ def test_padded_head_never_reaches_argmax_or_loss(arch):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_unpadded_heads_keep_their_shape(arch):
-    """Widths that are multiples of 8 are held as they are, full configs
-    included (shapes only); granite-moe's 49155 is held 49216 wide."""
+    """Widths that are multiples of 64 are held as they are, full configs
+    included (shapes only); others are padded up to the next multiple of 64:
+    granite-moe's 49155 is held 49216 wide, mamba2's 50280 50304."""
     cfg = get_arch(arch)
     width = T.head_width(cfg)
     held = T.held_width(width)
-    assert held == width if width % 8 == 0 else (held % 64 == 0 and 0 < held - width < 64)
+    assert held == width if width % 64 == 0 else (held % 64 == 0 and 0 < held - width < 64)
     assert T.pad_head(torch.empty((2, width), device="meta")).shape == (2, held)
     if arch == "granite-moe-3b-a800m":
         assert (width, held) == (49155, 49216)
+    if arch == "mamba2-1.3b":
+        assert (width, held) == (50280, 50304)
+
+
+# every config's head at full and smoke width: (true width, held width); only
+# granite-moe's and mamba2's full heads are padded
+HELD_WIDTHS = {
+    "phi3-medium-14b": ((100352, 100352), (256, 256)),
+    "tinyllama-1.1b": ((32000, 32000), (256, 256)),
+    "granite-20b": ((49152, 49152), (256, 256)),
+    "qwen3-0.6b": ((151936, 151936), (512, 512)),
+    "granite-moe-3b-a800m": ((49155, 49216), (256, 256)),
+    "dbrx-132b": ((100352, 100352), (256, 256)),
+    "llava-next-34b": ((64000, 64000), (256, 256)),
+    "musicgen-large": ((8192, 8192), (512, 512)),
+    "mamba2-1.3b": ((50280, 50304), (256, 256)),
+    "zamba2-1.2b": ((32000, 32000), (256, 256)),
+}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_held_width_rows_are_whole_128_byte_lines(arch):
+    """held_width at every config, full and smoke: the next multiple of 64
+    columns (bf16 rows of whole 128-byte lines, which TMA loads fastest),
+    and the width itself where it is one; the table lists every config."""
+    assert set(HELD_WIDTHS) == set(ARCH_IDS)
+    for cfg, want in zip((get_arch(arch), get_smoke(arch)), HELD_WIDTHS[arch]):
+        width = T.head_width(cfg)
+        assert (width, T.held_width(width)) == want
+        assert want[1] % 64 == 0 and 0 <= want[1] - width < 64
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "dbrx-132b"])

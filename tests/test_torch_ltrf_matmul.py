@@ -16,7 +16,7 @@ from repro_torch.kernels.ltrf_matmul import (  # noqa: E402
 from repro_torch.kernels.ltrf_matmul.ops import (  # noqa: E402
     DECODE_BK, DECODE_BN, DECODE_MAX_CLUSTER, DECODE_MAX_STAGES, DECODE_RESERVE, NUM_SMS, ROUTES, SMEM_PER_CTA,
     SMEM_PER_SM, WGMMA_RESERVE, WORKSPACE_CTAS, decode_gather_bytes, decode_stage_bytes, route,
-    stage_bytes,
+    schedule, stage_bytes,
 )
 
 # test_kernels.py:27-28, plus decode-like shapes (M = 8 rows)
@@ -27,7 +27,13 @@ SLICE_KN = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)
 # and the other main-path projections: mamba2-1.3b's in_proj, out_proj and
 # vocab; zamba2-1.2b's in_proj and shared MLP
 MAIN_PATH_KN = SLICE_KN + [(2048, 8512), (4096, 2048), (2048, 50280), (2048, 8384),
-                           (2048, 8192), (8192, 2048)]
+                           (2048, 8192), (8192, 2048), (2048, 50304)]
+# the other models' forward projections and heads (granite-moe-3b-a800m,
+# llava-next-34b, dbrx-132b, phi3-medium-14b, granite-20b)
+OTHER_FORWARD_KN = [(1536, 1536), (1536, 512), (1536, 49216), (7168, 7168), (7168, 1024),
+                    (7168, 20480), (20480, 7168), (7168, 64000), (6144, 6144), (6144, 1024),
+                    (6144, 100352), (5120, 5120), (5120, 1280), (5120, 17920), (17920, 5120),
+                    (5120, 100352), (6144, 128), (6144, 24576), (24576, 6144), (6144, 49152)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -92,9 +98,17 @@ def test_per_cta_plan_validates(M, kn):
     assert plan.num_slots == stages
     # both bf16 routes load unpadded, swizzled TMA boxes
     assert plan.vmem_budget == stages * stage_bytes(bm, bk, bn, 2, swizzled=True) <= SMEM_PER_CTA
-    # the plan covers one CTA's column of weight tiles: all of K, or on the
-    # decode route the longest of its K slices
-    assert sum(len(p.tiles) for p in plan.prefetches) >= -(-(-(-K // bk)) // split_k(M, K, N))
+    # the plan covers the busiest CTA's weight tiles: on the forward wgmma
+    # route every k-block of its units under the schedule, on the decode
+    # route the longest of its K slices
+    if route(M, 2) == "wgmma":
+        sched = schedule(M, K, N)
+        assert sched.bn == bn
+        stream = max(sum(b - a for _, a, b in sched.units(c)) for c in range(sched.grid))
+        assert stream == sched.longest() >= -(-K // bk) * sched.tiles / NUM_SMS
+    else:
+        stream = -(-(-(-K // bk)) // split_k(M, K, N))
+    assert sum(len(p.tiles) for p in plan.prefetches) >= stream
     assert matmul_plan(M, K, N, 2) is matmul_plan(M, K, N, 2)  # memoized
 
 
@@ -150,11 +164,16 @@ def test_wgmma_ring_fits_one_cta(M, kn):
 
 
 def test_wgmma_tile_width_spreads_narrow_n():
-    # tinyllama's wk / wv (N = 256): 128-wide tiles give 32 CTAs, not 16
-    assert pick_blocks(2048, 2048, 256, 2)[2] == 128
+    # tinyllama's wk / wv (N = 256): its 32 tiles of 128 x 128 are each cut
+    # into k-slices, spread over at least 96 CTAs (they were 32), each at
+    # least 8 k-blocks deep
+    sched = schedule(2048, 2048, 256)
+    assert sched.split_tiles == sched.tiles == 32 and sched.grid >= 96
+    assert WGMMA_MIN_SLICE_BLOCKS <= sched.longest() <= 32 // 3 + 1
+    assert pick_blocks(2048, 2048, 256, 2)[2] == sched.bn == 128
     # wide N takes 256-wide tiles (fewer bytes of shared memory per flop)
-    for N in (2048, 5632, 8384, 8512, 32000, 50280):
-        assert pick_blocks(2048, 2048, N, 2)[2] == 256
+    for N in (2048, 5632, 8384, 8512, 32000, 50304):
+        assert pick_blocks(2048, 2048, N, 2)[2] == schedule(2048, 2048, N).bn == 256
 
 
 @pytest.mark.parametrize("M", [1, 8, 33, 64])
@@ -284,7 +303,8 @@ def test_function_only_where_a_gradient_is_wanted():
 # ---------------------------------------------------------------------------
 
 from repro_torch.kernels.ltrf_matmul.ops import (  # noqa: E402
-    LAYOUTS, WGMMA_MIN_SLICE_BLOCKS, WORKSPACE_FLOATS, _fp32_as_nn, _product, _wgmma_bn,
+    LAYOUTS, WGMMA_MIN_SLICE_BLOCKS, WGMMA_SPLIT_MARGIN, WORKSPACE_COUNTERS, WORKSPACE_FLOATS,
+    _fp32_as_nn, _product, _wgmma_bn, candidates, data_parallel, wgmma_stages,
 )
 
 # the train step's projections (chip_smoke.py's slice_matmuls): tinyllama-1.1b
@@ -315,7 +335,7 @@ def test_backward_products_fill_the_card(M, kn, which):
     assert route(m, 2, layout) == "wgmma"
     bm, bk, bn, stages = pick_blocks(m, k, n, 2, layout)
     assert (bm, bk) == (128, 64) and bn == _wgmma_bn(m, n)
-    assert (bm, bk, bn, stages) == pick_blocks(m, k, n, 2)     # the forward's tiles
+    assert stages == wgmma_stages(bn)         # the ring as deep as the forward's at bn
     tiles, split = -(-m // bm) * -(-n // bn), split_k(m, k, n, 2, layout)
     assert tiles * split >= 0.96 * NUM_SMS
     if split > 1:
@@ -404,3 +424,150 @@ def test_fp32_backward_copies_into_the_forward_layout(layout, rows):
     if layout == "tn":
         assert x.shape == (12, -(-rows // 4) * 4)
     torch.testing.assert_close(x @ w, _product(a, b, layout), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the forward's split schedule (wgmma route, layout nn)
+# ---------------------------------------------------------------------------
+
+# ragged shapes whose tiles are split: a tile cut into 2 .. 79 k-slices, a
+# single tile, a ragged last wave beside whole waves
+RAGGED = [(300, 4104, 136), (1000, 1000, 264), (100, 5000, 104), (257, 640, 384),
+          (700, 2056, 520)]
+
+
+def _covers_once(sched) -> bool:
+    """Whether the units of all CTAs cover every (tile, k-block) once: each
+    tile's k-ranges, sorted, join end to end from 0 to n_k."""
+    ranges = {}
+    for c in range(sched.grid):
+        for tile, kb0, kb1 in sched.units(c):
+            assert 0 <= kb0 < kb1 <= sched.n_k
+            ranges.setdefault(tile, []).append((kb0, kb1))
+    ends = [0] * sched.tiles
+    for tile, rs in ranges.items():
+        for kb0, kb1 in sorted(rs):
+            if kb0 != ends[tile]:
+                return False
+            ends[tile] = kb1
+    return sorted(ranges) == list(range(sched.tiles)) and set(ends) == {sched.n_k}
+
+
+@pytest.mark.parametrize("M", [2048, 8192])
+@pytest.mark.parametrize("kn", MAIN_PATH_KN + OTHER_FORWARD_KN[:8])
+def test_schedule_covers_every_block_once(M, kn):
+    """Every candidate schedule (and so the one picked) covers every
+    (tile, k-block) of the product exactly once; a split tile's slices
+    differ by at most one k-block and hold at least WGMMA_MIN_SLICE_BLOCKS;
+    the split tiles are the ragged last wave's (whole tiles come in full
+    waves), one slice an SM at most."""
+    K, N = kn
+    for sched in candidates(M, K, N):
+        assert _covers_once(sched), sched
+        if sched.split > 1:
+            depths = [kb1 - kb0 for _, kb0, kb1 in map(sched.unit, sched.slices(0))]
+            assert max(depths) - min(depths) <= 1 and sum(depths) == sched.n_k
+            assert min(depths) >= WGMMA_MIN_SLICE_BLOCKS
+            assert sched.split_tiles == sched.tiles % NUM_SMS
+            assert sched.split_tiles * sched.split <= NUM_SMS
+    assert schedule(M, K, N) in candidates(M, K, N)
+
+
+def _fill(sched) -> float:
+    """The SM time the product's k-blocks fill: all of them over NUM_SMS x
+    the busiest CTA's (one tile width, so the same flops a block)."""
+    return sched.tiles * sched.n_k / (NUM_SMS * sched.longest())
+
+
+@pytest.mark.parametrize("M", [2048, 8192])
+@pytest.mark.parametrize("kn", MAIN_PATH_KN + OTHER_FORWARD_KN)
+def test_schedule_fills_the_card(M, kn):
+    """At every main-path forward shape some candidate keeps at least 95 %
+    of the card's SM time busy, weighted by flops; the picked schedule is
+    the cheapest under the cost model, a split one only where it saves
+    WGMMA_SPLIT_MARGIN of whole tiles' cost; it is at least as full as
+    whole 128-wide tiles wherever those leave a third of the card idle
+    (tinyllama's wk/wv: 32 tiles, a fill of 0.24)."""
+    K, N = kn
+    cands = candidates(M, K, N)
+    pick = schedule(M, K, N)
+    assert max(map(_fill, cands)) >= 0.95
+    whole = min(s.cost() for s in cands if s.split == 1)
+    split = min((s.cost() for s in cands if s.split > 1), default=whole)
+    assert pick.cost() == (split if split < (1 - WGMMA_SPLIT_MARGIN) * whole else whole)
+    whole = data_parallel(M, K, N, 128)
+    if _fill(whole) < 2 / 3:
+        assert _fill(pick) >= _fill(whole)
+    if (M, K, N) in ((2048, 2048, 256), (2048, 6144, 128)):
+        assert _fill(whole) < 0.25 and _fill(pick) >= 0.7
+
+
+@pytest.mark.parametrize("M", [2048, 8192])
+@pytest.mark.parametrize("kn", MAIN_PATH_KN + OTHER_FORWARD_KN)
+def test_split_fits_the_workspace(M, kn):
+    """A split schedule's partials fit the workspace, one slot a slice (its
+    unit number), and its split tiles the counters."""
+    K, N = kn
+    for sched in candidates(M, K, N):
+        if sched.split == 1:
+            continue
+        slots = [v for t in range(sched.split_tiles) for v in sched.slices(t)]
+        assert sorted(slots) == list(range(sched.split_tiles * sched.split))
+        assert sched.split_tiles * sched.split * 128 * sched.bn <= WORKSPACE_FLOATS
+        assert sched.split_tiles <= WORKSPACE_COUNTERS
+
+
+def _emulate(x, w, sched):
+    """The kernel's arithmetic on the CPU: per unit an fp32 partial (bf16
+    products are exact in fp32), a split tile's partials summed from slice
+    0 in k order, one rounding to bf16."""
+    M, N = x.shape[0], w.shape[1]
+    xf, wf = x.float(), w.float()
+    out = torch.empty(M, N)
+
+    def part(v):
+        tile, kb0, kb1 = sched.unit(v)
+        m0, n0 = (tile % sched.m_tiles) * 128, (tile // sched.m_tiles) * sched.bn
+        return (m0, n0), xf[m0:m0 + 128, 64 * kb0:64 * kb1] @ wf[64 * kb0:64 * kb1,
+                                                               n0:n0 + sched.bn]
+
+    for tile in range(sched.tiles):
+        if tile < sched.split_tiles:
+            (m0, n0), acc = part(sched.slices(tile)[0])
+            for v in sched.slices(tile)[1:]:
+                acc = acc + part(v)[1]
+        else:
+            (m0, n0), acc = part(tile + sched.split_tiles * (sched.split - 1))
+        out[m0:m0 + 128, n0:n0 + sched.bn] = acc
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", RAGGED)
+def test_stream_k_emulation_matches_ref(shape):
+    """The fixed-order fixup of every candidate schedule and of deeper
+    splits (down to one k-block a slice), emulated, agrees with the JAX
+    package's matmul_ref and its Pallas kernel (interpret mode) at the bf16
+    tolerance, gives the same bits twice, and a fixup that drops one
+    partial of a split tile does not agree."""
+    M, K, N = shape
+    x, w = randn(0, (M, K)), randn(1, (K, N)) / K ** 0.5
+    tx, tw = to_torch(x, "bfloat16"), to_torch(w, "bfloat16")
+    jx, jw = to_jax(x, "bfloat16"), to_jax(w, "bfloat16")
+    want_ref = jax_matmul_ref(jx, jw)
+    want_pallas = jax_ltrf_matmul(jx, jw, bm=128, bk=128, bn=128, interpret=True)
+    scheds = candidates(M, K, N) + [data_parallel(M, K, N, bn, -(-K // 64)) for bn in (128, 256)
+                                    if data_parallel(M, K, N, bn).tiles <= NUM_SMS]
+    assert any(s.split > 1 for s in scheds)
+    for sched in scheds:
+        got = _emulate(tx, tw, sched)
+        assert_close(got, want_ref, "bfloat16")
+        assert_close(got, want_pallas, "bfloat16")
+        assert torch.equal(got, _emulate(tx, tw, sched))
+    sched = max(scheds, key=lambda s: s.split)
+    tile, kb0, kb1 = sched.unit(sched.slices(0)[sched.split // 2])
+    m0, n0 = (tile % sched.m_tiles) * 128, (tile // sched.m_tiles) * sched.bn
+    dropped = _emulate(tx, tw, sched).float()
+    dropped[m0:m0 + 128, n0:n0 + sched.bn] -= (tx[m0:m0 + 128, 64 * kb0:64 * kb1].float()
+                                               @ tw[64 * kb0:64 * kb1, n0:n0 + sched.bn].float())
+    with pytest.raises(AssertionError):
+        assert_close(dropped.to(torch.bfloat16), want_ref, "bfloat16")
